@@ -1,0 +1,1 @@
+"""bfs_frontier kernel package: kernel.py (CUDA launch), ops.py (public op), ref.py (plain version)."""

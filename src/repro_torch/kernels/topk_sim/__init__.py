@@ -1,0 +1,1 @@
+"""topk_sim kernel package: kernel.py (CUDA launch), ops.py (public op), ref.py (plain version)."""

@@ -1,0 +1,118 @@
+"""Serving launcher (``--rag``): a synthetic citation graph + brute vector
+index feed raw (query embedding, query text) requests through
+``RAGServeEngine`` (batched retrieval admission + retrieval cache + decode),
+on the card by default.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b --rag
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b --rag \
+        --nodes 169343 --retrieval dense
+
+The CLI serves the arch's reduced config, as the reference launcher does;
+:func:`_serve_rag` takes any config (``chip_smoke.py`` passes the full one).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import configs as C
+from repro_torch import resolve_device
+from repro_torch.core.pipeline import PipelineConfig, RGLPipeline, index_from_config
+from repro_torch.core.tokenization import GraphTokenizer, Vocab
+from repro_torch.graph import generators
+from repro_torch.graph.ell import csr_to_ell
+from repro_torch.models.transformer import model as tm
+from repro_torch.serving.config import ServingConfig
+from repro_torch.serving.rag_engine import RAGRequest, RAGServeEngine
+
+
+def _serve_rag(cfg, args, q_ids: Optional[np.ndarray] = None,
+               params: Optional[dict] = None) -> dict:
+    """Build the graph, index, pipeline and model named by ``args`` on
+    ``args.device``, serve ``args.requests`` requests, and return a summary.
+    ``q_ids`` picks the query nodes (default: drawn as the reference does);
+    ``params`` replaces the seeded random weights (a CPU and a CUDA
+    generator draw different numbers from one seed)."""
+    dev = resolve_device(args.device)
+    t_setup = time.perf_counter()
+    g = generators.citation_graph(args.nodes, avg_deg=8, seed=0)
+    ell = csr_to_ell(g, device=dev)
+    emb = ell.node_feat
+    vocab = Vocab.build(g.node_text)
+    # the arch LM decodes the graph tokenizer's vocabulary
+    cfg = dataclasses.replace(cfg, vocab=vocab.size)
+    tok = GraphTokenizer(vocab, max_len=96, node_budget=8)
+    pcfg = PipelineConfig(strategy="bfs", k_seeds=3, max_nodes=16, filter_budget=6,
+                          index_kind=args.index, retrieval_mode=args.retrieval)
+    index = index_from_config(emb, pcfg, device=dev)
+    pipe = RGLPipeline(graph=ell, index=index, node_emb=emb, tokenizer=tok,
+                       node_text=g.node_text, config=pcfg, device=dev)
+    if params is None:
+        params = tm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    # the linearized graph prompt (<= tokenizer max_len) plus generated
+    # tokens must fit the arena; sliding_window only bounds attention reach
+    cache_len = max(cfg.sliding_window or 0, 96 + args.max_new + 1)
+    serve_cfg = ServingConfig.resolve(None, slots=args.slots, cache_len=cache_len,
+                                      cache_policy=args.cache_policy)
+    eng = RAGServeEngine(pipe, params, cfg, config=serve_cfg, device=dev)
+    if q_ids is None:
+        q_ids = np.random.default_rng(0).choice(args.nodes, size=args.requests, replace=True)
+    emb_np = g.node_feat
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t_setup
+    t0 = time.perf_counter()
+    for u, qi in enumerate(q_ids):
+        eng.submit(RAGRequest(
+            uid=u, query_emb=emb_np[qi],
+            query_text=" ".join(g.node_text[qi].split()[:4]),
+            max_new_tokens=args.max_new,
+        ))
+    done = eng.drain()
+    dt = time.perf_counter() - t0
+    ok = [r for r in done if r.done and not r.failed]
+    toks = sum(len(r.out_tokens) for r in ok)
+    s = eng.stats()
+    return {
+        "engine": eng, "done": done, "cfg": cfg, "params": params, "cache_len": cache_len,
+        "setup_s": setup_s, "serve_s": dt, "tokens": toks, "ok": len(ok),
+        "tok_per_s": toks / dt, "retrieval_s": s["retrieval_seconds"],
+        "retrieval_batches": s["retrieval_batches"],
+        "decode_ms_per_step": 1e3 * s["decode_seconds"] / max(s["decode_steps"], 1),
+        "stats": s,
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=C.ARCH_IDS)
+    ap.add_argument("--rag", action="store_true",
+                    help="serve end-to-end through the fused RAG engine (the mode ported)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max_new", type=int, default=12)
+    ap.add_argument("--nodes", type=int, default=1000, help="synthetic graph size")
+    ap.add_argument("--index", default="brute", choices=["brute", "ivf", "sharded", "sharded_ivf"],
+                    help="stage-1 vector index backend (only brute is ported)")
+    ap.add_argument("--retrieval", default="auto", choices=["dense", "compact", "auto"],
+                    help="stage-3 backend (dense is ported; auto is dense below 100k nodes)")
+    ap.add_argument("--cache-policy", default="lru", choices=["lru", "lfu", "ttl"])
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if not args.rag:
+        raise SystemExit("token mode is not ported yet (ROADMAP Queue 1 item 15); pass --rag")
+    out = _serve_rag(C.get_config(args.arch).reduced_cfg, args)
+    s = out["stats"]
+    print(f"[{args.arch}] RAG-served {out['ok']}/{len(out['done'])} requests / "
+          f"{out['tokens']} tokens in {out['serve_s']:.2f}s ({out['tok_per_s']:.1f} tok/s) "
+          f"on {args.device}; {s['retrieval_batches']} retrieval batches, "
+          f"cache {s['hits']}/{s['hits'] + s['misses']} hits")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,174 @@
+"""Port retrieval stages vs the reference on the same graph and queries:
+BFS subgraphs, the dense dispatch, the dynamic filter, padded batched
+retrieval and tokenized prompts.  Every output here is integer or bool and
+must match exactly, tie order included."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import BruteIndex as RefBruteIndex
+from repro.core import GraphTokenizer as RefTokenizer
+from repro.core import PipelineConfig as RefPipelineConfig
+from repro.core import RGLPipeline as RefPipeline
+from repro.core import Vocab as RefVocab
+from repro.core import filters as ref_filters
+from repro.core import graph_retrieval as ref_gr
+from repro.graph import csr_to_ell as ref_csr_to_ell
+from repro.graph import generators as ref_gen
+from repro_torch.core import filters, graph_retrieval as gr
+from repro_torch.core.indexing import BruteIndex, build_index
+from repro_torch.core.pipeline import PipelineConfig, RGLPipeline
+from repro_torch.core.tokenization import GraphTokenizer, Vocab
+from repro_torch.graph import generators
+from repro_torch.graph.ell import ELLGraph, csr_to_ell
+
+N = 2000
+PCFG = dict(strategy="bfs", k_seeds=3, max_hops=2, max_nodes=16, filter_budget=6,
+            retrieval_mode="dense")
+
+
+@pytest.fixture(scope="module")
+def stacks():
+    g_ref = ref_gen.citation_graph(N, avg_deg=8, seed=3)
+    g = generators.citation_graph(N, avg_deg=8, seed=3)
+    ref_pipe = RefPipeline(
+        graph=ref_csr_to_ell(g_ref), index=RefBruteIndex.build(jnp.asarray(g_ref.node_feat)),
+        node_emb=jnp.asarray(g_ref.node_feat),
+        tokenizer=RefTokenizer(RefVocab.build(g_ref.node_text), max_len=96, node_budget=8),
+        node_text=g_ref.node_text, config=RefPipelineConfig(**PCFG),
+    )
+    ell = csr_to_ell(g, device="cpu")
+    pipe = RGLPipeline(
+        graph=ell, index=BruteIndex.build(g.node_feat, device="cpu"), node_emb=ell.node_feat,
+        tokenizer=GraphTokenizer(Vocab.build(g.node_text), max_len=96, node_budget=8),
+        node_text=g.node_text, config=PipelineConfig(**PCFG), device="cpu",
+    )
+    return g, ref_pipe, pipe
+
+
+def _seeds(rng, q, s, n):
+    seeds = rng.integers(0, n, (q, s)).astype(np.int32)
+    seeds[0, -1] = -1  # padding
+    seeds[1, 1] = seeds[1, 0]  # duplicate
+    return seeds
+
+
+def _same_sub(a, b):
+    for name in ("nodes", "mask", "dist"):
+        np.testing.assert_array_equal(np.asarray(getattr(a, name)), getattr(b, name).numpy(),
+                                      err_msg=name)
+    assert a.num_nodes == b.num_nodes
+
+
+@pytest.mark.parametrize("max_hops,max_nodes", [(1, 16), (2, 64), (3, 40)])
+def test_bfs_subgraph_matches(stacks, max_hops, max_nodes):
+    _, ref_pipe, pipe = stacks
+    seeds = _seeds(np.random.default_rng(max_hops), 5, 3, N)
+    a = ref_gr.bfs_subgraph(ref_pipe.graph.nbr, ref_pipe.graph.nbr_mask, jnp.asarray(seeds),
+                            max_hops=max_hops, max_nodes=max_nodes)
+    b = gr.bfs_subgraph(pipe.graph.nbr, pipe.graph.nbr_mask, torch.from_numpy(seeds),
+                        max_hops=max_hops, max_nodes=max_nodes)
+    _same_sub(a, b)
+
+
+@pytest.mark.parametrize("mode", ["dense", "auto"])
+def test_retrieve_subgraph_matches(stacks, mode):
+    _, ref_pipe, pipe = stacks
+    seeds = _seeds(np.random.default_rng(9), 4, 3, N)
+    a = ref_gr.retrieve_subgraph(ref_pipe.graph, jnp.asarray(seeds), mode=mode, max_hops=3,
+                                 max_nodes=32)
+    b = gr.retrieve_subgraph(pipe.graph, torch.from_numpy(seeds), mode=mode, max_hops=3,
+                             max_nodes=32)
+    _same_sub(a, b)
+    assert b.overflow is None
+
+
+@pytest.mark.parametrize("budget", [4, 16, 40])
+def test_dynamic_filter_matches(stacks, budget):
+    """Seeds all score +inf and padding -inf: the survivors among equal scores
+    follow position order in both."""
+    g, ref_pipe, pipe = stacks
+    rng = np.random.default_rng(budget)
+    seeds = _seeds(rng, 4, 3, N)
+    q = g.node_feat[rng.choice(N, 4)]
+    sub_a = ref_gr.bfs_subgraph(ref_pipe.graph.nbr, ref_pipe.graph.nbr_mask, jnp.asarray(seeds),
+                                max_hops=2, max_nodes=32)
+    sub_b = gr.bfs_subgraph(pipe.graph.nbr, pipe.graph.nbr_mask, torch.from_numpy(seeds),
+                            max_hops=2, max_nodes=32)
+    sc_a = ref_filters.similarity_scores(ref_pipe.node_emb, jnp.asarray(q))
+    sc_b = filters.similarity_scores(pipe.node_emb, torch.from_numpy(q))
+    np.testing.assert_allclose(sc_b.numpy(), np.asarray(sc_a), atol=1e-5, rtol=0)
+    a = ref_filters.dynamic_filter(sub_a, sc_a, jnp.asarray(seeds), budget=budget)
+    b = filters.dynamic_filter(sub_b, sc_b, torch.from_numpy(seeds), budget=budget)
+    _same_sub(a, b)
+
+
+def test_retrieve_many_padding_and_prompts(stacks):
+    g, ref_pipe, pipe = stacks
+    rng = np.random.default_rng(11)
+    q = g.node_feat[rng.choice(N, 3)] + 0.01 * rng.standard_normal((3, 128)).astype(np.float32)
+    a = ref_pipe.retrieve_many(q, batch_size=8)
+    b = pipe.retrieve_many(q, batch_size=8)
+    assert (a.n_valid, b.n_valid, b.epoch) == (3, 3, 0)
+    assert b.seeds.shape[0] == 8
+    _same_sub(a.sub, b.sub)
+    np.testing.assert_array_equal(np.asarray(a.seeds), b.seeds.numpy())
+    # padding rows never perturb real rows
+    c = pipe.retrieve(q)
+    for name in ("nodes", "mask", "dist"):
+        assert torch.equal(getattr(b, name)[:3], getattr(c, name))
+    texts = [g.node_text[i][:40] for i in range(8)]
+    ids_a, mask_a = ref_pipe.tokenize(texts, a.sub)
+    ids_b, mask_b = pipe.tokenize(texts, b.sub)
+    np.testing.assert_array_equal(ids_a, ids_b)
+    np.testing.assert_array_equal(mask_a, mask_b)
+
+
+def test_pipeline_run_matches(stacks):
+    g, ref_pipe, pipe = stacks
+    qe = g.node_feat[:3]
+    texts = [g.node_text[i] for i in range(3)]
+    a = ref_pipe.run(jnp.asarray(qe), texts)
+    b = pipe.run(qe, texts)
+    np.testing.assert_array_equal(a["seeds"], b["seeds"])
+    for qi in range(3):  # a node's own embedding retrieves itself
+        assert qi in b["seeds"][qi]
+    np.testing.assert_array_equal(a["prompt_ids"], b["prompt_ids"])
+    np.testing.assert_array_equal(a["prompt_mask"], b["prompt_mask"])
+
+
+def test_induced_adjacency_matches(stacks):
+    _, ref_pipe, pipe = stacks
+    seeds = _seeds(np.random.default_rng(2), 3, 3, N)
+    a = ref_gr.bfs_subgraph(ref_pipe.graph.nbr, ref_pipe.graph.nbr_mask, jnp.asarray(seeds),
+                            max_hops=2, max_nodes=24)
+    b = gr.bfs_subgraph(pipe.graph.nbr, pipe.graph.nbr_mask, torch.from_numpy(seeds),
+                        max_hops=2, max_nodes=24)
+    na, ma = ref_gr.induced_adjacency(ref_pipe.graph.nbr, ref_pipe.graph.nbr_mask, a)
+    nb, mb = gr.induced_adjacency(pipe.graph.nbr, pipe.graph.nbr_mask, b)
+    np.testing.assert_array_equal(np.asarray(na), nb.numpy())
+    np.testing.assert_array_equal(np.asarray(ma), mb.numpy())
+
+
+def test_unported_paths_raise(stacks):
+    _, _, pipe = stacks
+    seeds = torch.zeros((1, 3), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        gr.retrieve_subgraph(pipe.graph, seeds, mode="compact")
+    big = ELLGraph(nbr=pipe.graph.nbr, nbr_mask=pipe.graph.nbr_mask,
+                   num_nodes=gr.AUTO_COMPACT_MIN_NODES)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        gr.retrieve_subgraph(big, seeds, mode="auto")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        gr.retrieve_subgraph(pipe.graph, seeds, "steiner", mode="dense")
+    with pytest.raises(ValueError, match="unknown retrieval mode"):
+        gr.retrieve_subgraph(pipe.graph, seeds, mode="fast")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        build_index(pipe.node_emb, kind="ivf", device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        build_index(pipe.node_emb, kind="sharded", device="cpu")
+    with pytest.raises(ValueError, match="lives on"):
+        dataclasses.replace(pipe, device="meta")
