@@ -8,15 +8,22 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 1. card: the card's name and power limit (``nvidia-smi``); fails without CUDA;
 2. build: compile the hand-written kernels (``src/repro_torch/csrc``);
 3. kernels: each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (the 169,343-node Arxiv-scale graph, D = 128, K = 1016)
-   and on edge cases, with times of the kernel, the plain version and one
-   library call, and the least time the card could take (``bound_ms``);
-4. main path: ``repro_torch.launch.serve._serve_rag`` serves 8 distinct
+   main path's shapes (the 169,343-node Arxiv-scale graph, D = 128, K = 1016,
+   a 2048-slot workset) and on edge cases, with times of the kernel, the
+   plain version and one library call, and the least time the card could
+   take (``bound_ms``);
+4. strategies: one Q = 4 wave of each of bfs, dense, steiner and ppr on the
+   same graph through the compact and the dense backend; rows that did not
+   overflow must agree exactly;
+5. main path: ``repro_torch.launch.serve._serve_rag`` serves 8 distinct
    requests plus 4 repeats through ``RAGServeEngine`` with the full-width,
    full-depth StarCoder2-3B config in bf16 (random weights from a seed), the
-   brute index and dense BFS, counting each kernel's launches; then a few
-   decode steps and one retrieval wave are timed and profiled, and a small
-   fp32 run checks the card's outputs against the CPU's exactly.
+   brute index and the reference's default ``retrieval="auto"`` (compact
+   workset BFS, and a dense re-run of any wave with an overflowing query),
+   counting each kernel's launches; then a few decode steps and one
+   retrieval wave (auto, compact alone, dense alone) are timed and profiled,
+   and small fp32 runs check the card's outputs against the CPU's exactly
+   (serving in auto and compact mode, every strategy in both backends).
 
 The second-to-last line is ``{"kernels": [...]}`` (one record per kernel);
 the last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -24,6 +31,7 @@ the last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -98,6 +106,32 @@ def kernel_ms_by_name(prof, per: int) -> dict:
 def bound(n_bytes: float, n_ops: float, ops_rate: float) -> tuple[float, str]:
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_rate
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+# kernel-name fragments of the port's hand-written kernels in a trace
+KERNEL_GROUPS = (("frontier_expand", "ws_mark_kernel"), ("bfs_frontier", "frontier_hop_kernel"),
+                 ("bfs_frontier", "pack_frontier_kernel"), ("topk_sim", "topk_sim_tile_kernel"),
+                 ("sorts", "ort"), ("sorts", "adix"))
+
+
+def split_kernels(by_name: dict) -> dict:
+    """Device ms of a trace grouped as the port's three kernels, PyTorch's
+    sorts and everything else."""
+    out: dict = {}
+    for name, ms in by_name.items():
+        group = next((g for g, frag in KERNEL_GROUPS if frag in name), "other")
+        out[group] = out.get(group, 0.0) + ms
+    return out
+
+
+def query_seeds(emb: torch.Tensor, k: int = 3) -> torch.Tensor:
+    """The seeds of the main path's first wave: the 4 first query nodes'
+    top-k neighbours by embedding, as the brute index finds them."""
+    from repro_torch.kernels.topk_sim import ops
+
+    q_nodes = np.random.default_rng(0).choice(emb.shape[0], 8, replace=False)[:4]
+    q = emb[torch.from_numpy(q_nodes).to(emb.device)]
+    return ops.topk_similarity(q, emb, k, use_kernel=False)[1]
 
 
 # ---------------------------------------------------------------- kernels ----
@@ -196,10 +230,97 @@ def check_bfs_frontier(nbr: torch.Tensor, mask: torch.Tensor, rng: np.random.Gen
             "full_ell_bound_ms": 1e3 * (5 * n * kd + 8 * n) / HBM_BYTES_PER_S}
 
 
+def check_frontier_expand(nbr: torch.Tensor, mask: torch.Tensor, seeds: torch.Tensor,
+                          rng: np.random.Generator) -> dict:
+    """The mark kernel on a real wave: the workset after two hops of the
+    main path's seeds, and the third hop's C * K candidates."""
+    from repro_torch.core.workset import build_workset
+    from repro_torch.kernels.frontier_expand import ops
+
+    dev = nbr.device
+    n, kd = nbr.shape
+    cap, hops = 2048, 3
+    ws = build_workset(nbr, mask, seeds, max_hops=hops - 1, cap=cap, use_kernel=False)
+    cand = ops.hop_candidates(ws.ids, nbr, mask)
+    got = ops.ws_member(ws.ids, cand, use_kernel=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.ws_member(ws.ids, cand, use_kernel=False)), "frontier_expand differs"
+    # edge cases: repeats, sentinel and int32-max candidates, C = 1, C not a
+    # power of two, a row past 48 KB of shared memory, a ragged W, an
+    # unaligned candidate row
+    for q, c, w in ((1, 1, 7), (3, 1000, 1001), (2, 20_000, 4099), (4, 2048, 65_536)):
+        rows = np.sort(rng.integers(0, 3 * c, (q, c)), axis=1).astype(np.int32)
+        rows[:, c // 2:] = 3 * c  # sentinel padding: the pad value 3c, repeated
+        wsr = torch.from_numpy(rows).to(dev)
+        cd = torch.from_numpy(rng.integers(0, 3 * c + 1, (q, w)).astype(np.int32)).to(dev)
+        cd[:, 0] = 3 * c
+        cd[:, 1] = torch.iinfo(torch.int32).max
+        for x in (cd, cd[:, 1:]):
+            assert torch.equal(ops.ws_member(wsr, x, use_kernel=True),
+                               ops.ws_member(wsr, x, use_kernel=False)), (q, c, w)
+    # the whole third hop: mark arm (the kernel) against the sort arm, bitwise
+    hop = lambda uk: ops.expand_hop(ws.ids, ws.dist, nbr, mask, hops, band=hops + 2,  # noqa: E731
+                                    use_kernel=uk)
+    mark_out, sort_out = hop(True), hop(False)
+    for a, b in zip(mark_out, sort_out):
+        assert torch.equal(a, b), "expand_hop's mark arm differs from its sort arm"
+
+    ids, w = ws.ids, cand.shape[1]
+    run = lambda: ops.ws_member(ids, cand, use_kernel=True)  # noqa: E731
+    ms, kernels = device_ms(run)
+    plain_ms, _ = device_ms(lambda: ops.ws_member(ids, cand, use_kernel=False))
+
+    def library():  # searchsorted, then the gather and compare
+        pos = torch.searchsorted(ids, cand)
+        return (pos < cap) & (torch.gather(ids, 1, pos.clamp(max=cap - 1)) == cand)
+
+    library_ms, _ = device_ms(library)
+    q = ids.shape[0]
+    rounds = max(1, (cap - 1).bit_length()) + 1
+    b_ms, b_by = bound(5 * q * w + 4 * q * cap, 4 * rounds * q * w, INT_OPS)
+    hop_mark_ms, hop_kernels = device_ms(lambda: hop(True), calls=5)
+    hop_sort_ms, _ = device_ms(lambda: hop(False), calls=5)
+    live = int((cand < n).sum())
+    return {"name": "frontier_expand", "route": "cuda", "source": "src/repro_torch/csrc/frontier_expand.cu",
+            "replaces": "src/repro/kernels/frontier_expand/kernel.py:61",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms, "call_ms": time_ms(run),
+            "device_kernels_ms": kernels,
+            "shape": f"Q={q} C={cap} W={w} (C*K, K={kd}) live_candidates={live}",
+            "workset_overflow_after_2_hops": int(ws.overflow.sum()),
+            "hop3_dropped": int(mark_out[3].sum()),
+            "hop_ms": {"mark_arm": hop_mark_ms, "sort_arm": hop_sort_ms,
+                       "mark_arm_split": split_kernels(hop_kernels)}}
+
+
+# ------------------------------------------------------------- strategies ----
+def strategy_phase(ell, seeds: torch.Tensor) -> None:
+    """One wave of every strategy through both backends on the full graph;
+    rows that did not overflow must agree exactly."""
+    from repro_torch.core import graph_retrieval as gr
+
+    for strategy in ("bfs", "dense", "steiner", "ppr"):
+        for radius in ((1, 10) if strategy == "ppr" else (1, 3)):
+            kw = {"n_iter" if strategy == "ppr" else "max_hops": radius, "max_nodes": 16}
+            subs, wall = {}, {}
+            for mode in ("compact", "dense"):
+                run = lambda: gr.retrieve_subgraph(ell, seeds, strategy, mode=mode, **kw)  # noqa: E731
+                subs[mode] = run()
+                wall[mode] = time_ms(run, reps=3, batch=1)
+            ok = ~subs["compact"].overflow
+            for name in ("nodes", "mask", "dist"):
+                a, b = getattr(subs["compact"], name), getattr(subs["dense"], name)
+                assert torch.equal(a[ok], b[ok]), (strategy, radius, name)
+            line = {"strategy": strategy, **kw, "overflow_rows": int((~ok).sum()),
+                    "rows_compared": int(ok.sum()), "compact_ms": wall["compact"],
+                    "dense_ms": wall["dense"]}
+            print(json.dumps({"strategy_wave": line}), flush=True)
+
+
 # -------------------------------------------------------------- main path ----
 def serve_args(**kw) -> argparse.Namespace:
     base = dict(requests=12, slots=4, max_new=12, nodes=N_NODES, index="brute",
-                retrieval="dense", cache_policy="lru", device="cuda")
+                retrieval="auto", cache_policy="lru", device="cuda")
     base.update(kw)
     return argparse.Namespace(**base)
 
@@ -207,18 +328,35 @@ def serve_args(**kw) -> argparse.Namespace:
 def main_path(cfg) -> dict:
     """Serve 8 distinct requests plus 4 repeats through the port's entry
     points with ``cfg`` on the card; every kernel launch is counted."""
+    from repro_torch.core import graph_retrieval as gr
     from repro_torch.kernels.bfs_frontier import kernel as bfs_kernel
+    from repro_torch.kernels.frontier_expand import kernel as fe_kernel
     from repro_torch.kernels.topk_sim import kernel as topk_kernel
     from repro_torch.launch.serve import _serve_rag
 
     args = serve_args()
     distinct = np.random.default_rng(0).choice(args.nodes, 8, replace=False)
     q_ids = np.concatenate([distinct, distinct[:4]])
-    torch.cuda.reset_peak_memory_stats()
-    topk_kernel.launches.reset()
-    bfs_kernel.launches.reset()
-    out = _serve_rag(cfg, args, q_ids=q_ids)
-    launches = {"topk_sim": topk_kernel.launches.count, "bfs_frontier": bfs_kernel.launches.count}
+    # observe (not change) the compact backend: each wave's overflowing rows
+    overflow_rows: list = []
+    compact_bfs = gr.COMPACT_STRATEGIES["bfs"]
+
+    def recording(*a, **kw):
+        sub = compact_bfs(*a, **kw)
+        overflow_rows.append(int(sub.overflow.sum()))
+        return sub
+
+    gr.COMPACT_STRATEGIES["bfs"] = recording
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for counter in (topk_kernel.launches, bfs_kernel.launches, fe_kernel.launches):
+            counter.reset()
+        out = _serve_rag(cfg, args, q_ids=q_ids)
+        launches = {"topk_sim": topk_kernel.launches.count,
+                    "bfs_frontier": bfs_kernel.launches.count,
+                    "frontier_expand": fe_kernel.launches.count}
+    finally:
+        gr.COMPACT_STRATEGIES["bfs"] = compact_bfs
     done, s = out["done"], out["stats"]
     assert len(done) == 12 and all(r.done and not r.failed for r in done), "requests lost or failed"
     vocab = out["cfg"].vocab
@@ -227,20 +365,33 @@ def main_path(cfg) -> dict:
         assert all(0 <= t < vocab for t in r.out_tokens)
     assert s["hits"] >= 4 and all(r.cache_hit for r in done if r.uid >= 8), s["hits"]
     waves = out["retrieval_batches"]
-    assert launches["topk_sim"] == waves > 0, (launches, waves)
-    assert launches["bfs_frontier"] == 3 * waves, (launches, waves)
-    decode_profile = profile_decode(out["engine"].engine)
-    # one warm retrieval wave (4 fresh queries) on its own: wall time and
-    # the device time of its kernels
     pipe = out["engine"].pipeline
+    hops = pipe.config.max_hops
+    reruns = sum(1 for r in overflow_rows if r > 0)  # waves that re-ran dense
+    print(f"main path: {waves} retrieval waves, overflowing rows per wave {overflow_rows}",
+          flush=True)
+    assert launches["topk_sim"] == waves > 0, (launches, waves)
+    assert len(overflow_rows) == waves, (overflow_rows, waves)
+    assert launches["frontier_expand"] == hops * waves, (launches, waves)
+    assert launches["bfs_frontier"] == hops * reruns, (launches, overflow_rows)
+    decode_profile = profile_decode(out["engine"].engine)
+    # one warm retrieval wave (4 fresh queries) on its own, through auto,
+    # compact alone and dense alone: wall time and device time by kernel
     fresh = torch.from_numpy((q_ids[:4] + 1) % args.nodes).to(pipe.device)
     qw = pipe.node_emb[fresh].cpu().numpy()
-    wave = lambda: pipe.retrieve_many(qw, batch_size=args.slots).nodes.cpu()  # noqa: E731
-    wave_dev, wave_kernels = device_ms(wave, calls=3)
-    retrieval_wave = {"wall_ms": time_ms(wave, reps=3, batch=2), "device_ms": wave_dev,
-                      "top_kernels_ms": dict(sorted(wave_kernels.items(),
-                                                    key=lambda kv: -kv[1])[:6])}
-    return {"launches": launches, "waves": waves, "tok_per_s": out["tok_per_s"],
+    retrieval_wave = {}
+    for mode in ("auto", "compact", "dense"):
+        p = dataclasses.replace(pipe, config=dataclasses.replace(pipe.config, retrieval_mode=mode))
+        wave = lambda: p.retrieve_many(qw, batch_size=args.slots).nodes.cpu()  # noqa: E731
+        ov = p.retrieve_many(qw, batch_size=args.slots).overflow
+        wave_dev, wave_kernels = device_ms(wave, calls=3)
+        retrieval_wave[mode] = {
+            "wall_ms": time_ms(wave, reps=3, batch=2), "device_ms": wave_dev,
+            "overflow_rows": None if ov is None else int(ov.sum()),
+            "device_ms_split": split_kernels(wave_kernels),
+            "top_kernels_ms": dict(sorted(wave_kernels.items(), key=lambda kv: -kv[1])[:6])}
+    return {"launches": launches, "waves": waves, "overflow_rows_per_wave": overflow_rows,
+            "dense_reruns": reruns, "tok_per_s": out["tok_per_s"],
             "tokens": out["tokens"], "serve_s": out["serve_s"], "setup_s": out["setup_s"],
             "retrieval_s": out["retrieval_s"], "decode_ms_per_step": out["decode_ms_per_step"],
             "decode_steps": s["decode_steps"], "prefill_batches": s["prefill_batches"],
@@ -250,24 +401,56 @@ def main_path(cfg) -> dict:
             "decode_profile": decode_profile, "retrieval_wave": retrieval_wave}
 
 
-def cross_device_check(reduced_cfg) -> None:
+def cross_device_check(reduced_cfg) -> int:
     """The whole main path at a small size on the card (kernels) and on the
-    CPU (plain versions), with the same weights: retrieved nodes, prompts
-    and tokens must agree."""
+    CPU (plain versions), with the same weights, in auto and in compact
+    mode: retrieved nodes, prompts and tokens must agree.  Then every
+    strategy through both backends on the same graph: seeds, nodes, mask,
+    dist and overflow flags must agree.  Returns the number of overflowing
+    rows the compact runs met."""
+    from repro_torch.core.indexing import BruteIndex
+    from repro_torch.core.pipeline import PipelineConfig, RGLPipeline
+    from repro_torch.graph import generators
+    from repro_torch.graph.ell import csr_to_ell
     from repro_torch.launch.serve import _serve_rag
 
-    card = _serve_rag(reduced_cfg, serve_args(nodes=3000, requests=8))
-    params = card["params"]
-    host = {"embed": params["embed"].cpu(), "ln_f": params["ln_f"].cpu(),
-            "head": params["head"].cpu(),
-            "layers": {k: v.cpu() for k, v in params["layers"].items()}}
-    cpu = _serve_rag(reduced_cfg, serve_args(nodes=3000, requests=8, device="cpu"), params=host)
-    runs = [{r.uid: r for r in out["done"]} for out in (card, cpu)]
-    for uid, a in runs[0].items():
-        b = runs[1][uid]
-        assert np.array_equal(a.retrieved_nodes, b.retrieved_nodes), uid
-        assert np.array_equal(a.prompt_ids, b.prompt_ids), uid
-        assert a.out_tokens == b.out_tokens, (uid, a.out_tokens, b.out_tokens)
+    for retrieval in ("auto", "compact"):
+        card = _serve_rag(reduced_cfg, serve_args(nodes=3000, requests=8, retrieval=retrieval))
+        params = card["params"]
+        host = {"embed": params["embed"].cpu(), "ln_f": params["ln_f"].cpu(),
+                "head": params["head"].cpu(),
+                "layers": {k: v.cpu() for k, v in params["layers"].items()}}
+        cpu = _serve_rag(reduced_cfg, serve_args(nodes=3000, requests=8, device="cpu",
+                                                 retrieval=retrieval), params=host)
+        runs = [{r.uid: r for r in out["done"]} for out in (card, cpu)]
+        for uid, a in runs[0].items():
+            b = runs[1][uid]
+            assert np.array_equal(a.retrieved_nodes, b.retrieved_nodes), (retrieval, uid)
+            assert np.array_equal(a.prompt_ids, b.prompt_ids), (retrieval, uid)
+            assert a.out_tokens == b.out_tokens, (retrieval, uid, a.out_tokens, b.out_tokens)
+    g = generators.citation_graph(3000, avg_deg=8, seed=0)
+    q = g.node_feat[np.random.default_rng(5).choice(3000, 4, replace=False)]
+    pipes = []
+    for d in ("cuda", "cpu"):
+        ell = csr_to_ell(g, device=d)
+        pipes.append(RGLPipeline(graph=ell, index=BruteIndex.build(g.node_feat, device=d),
+                                 node_emb=ell.node_feat, device=d,
+                                 config=PipelineConfig(k_seeds=3, max_nodes=16, filter_budget=6)))
+    overflowed = 0
+    for strategy in ("bfs", "dense", "steiner", "ppr"):
+        for mode in ("dense", "compact"):
+            res = []
+            for p in pipes:
+                cfg = dataclasses.replace(p.config, strategy=strategy, retrieval_mode=mode)
+                r = dataclasses.replace(p, config=cfg).retrieve_many(q, batch_size=4)
+                res.append(r)
+            a, b = res
+            for name in ("seeds", "nodes", "mask", "dist"):
+                assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), (strategy, mode, name)
+            if mode == "compact":
+                assert torch.equal(a.overflow.cpu(), b.overflow), (strategy, "overflow")
+                overflowed += int(b.overflow.sum())
+    return overflowed
 
 
 def profile_decode(engine, steps: int = 5) -> dict:
@@ -333,18 +516,29 @@ def main() -> int:
           f"{g.num_edges} arcs ({time.perf_counter() - t0:.1f}s)", flush=True)
     from repro_torch.core.indexing import l2_normalize
     rng = np.random.default_rng(0)
-    records = [check_topk_sim(l2_normalize(ell.node_feat).contiguous(), rng),
-               check_bfs_frontier(ell.nbr, ell.nbr_mask, rng)]
-    del g, ell
+    emb = l2_normalize(ell.node_feat).contiguous()
+    seeds = query_seeds(emb)
+    records = [check_topk_sim(emb, rng), check_bfs_frontier(ell.nbr, ell.nbr_mask, rng),
+               check_frontier_expand(ell.nbr, ell.nbr_mask, seeds, rng)]
     for rec in records:
         print(f"kernel check: {rec['name']} matches its plain version "
               f"(max abs err {rec['max_abs_err']:.3g})", flush=True)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    strategy_phase(ell, seeds)
+    print(f"strategies: compact and dense agree on every row that did not overflow "
+          f"({time.perf_counter() - t0:.1f}s, peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB)",
+          flush=True)
+    del g, ell, emb
+    torch.cuda.empty_cache()
 
     mp = main_path(spec.model_cfg)
-    print(json.dumps({"main_path": "starcoder2-3b bf16, 169343-node graph, dense BFS",
+    print(json.dumps({"main_path": "starcoder2-3b bf16, 169343-node graph, retrieval auto",
                       "card": card, **mp}), flush=True)
-    cross_device_check(spec.reduced_cfg)
-    print("cross-device check: card and CPU agree on nodes, prompts and tokens", flush=True)
+    overflowed = cross_device_check(spec.reduced_cfg)
+    print(f"cross-device check: card and CPU agree on nodes, prompts and tokens (auto, "
+          f"compact) and on every strategy in both backends ({overflowed} overflowing rows)",
+          flush=True)
 
     for rec in records:
         rec["launches"] = mp["launches"][rec["name"]]

@@ -5,7 +5,7 @@ on the card by default.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b --rag
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b --rag \
-        --nodes 169343 --retrieval dense
+        --nodes 169343
 
 The CLI serves the arch's reduced config, as the reference launcher does;
 :func:`_serve_rag` takes any config (``chip_smoke.py`` passes the full one).
@@ -100,7 +100,7 @@ def main(argv=None):
     ap.add_argument("--index", default="brute", choices=["brute", "ivf", "sharded", "sharded_ivf"],
                     help="stage-1 vector index backend (only brute is ported)")
     ap.add_argument("--retrieval", default="auto", choices=["dense", "compact", "auto"],
-                    help="stage-3 backend (dense is ported; auto is dense below 100k nodes)")
+                    help="stage-3 subgraph construction backend")
     ap.add_argument("--cache-policy", default="lru", choices=["lru", "lfu", "ttl"])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)

@@ -1,6 +1,6 @@
 """Port retrieval stages vs the reference on the same graph and queries:
-BFS subgraphs, the dense dispatch, the dynamic filter, padded batched
-retrieval and tokenized prompts.  Every output here is integer or bool and
+BFS subgraphs, the strategy and backend dispatch, the dynamic filter,
+padded batched retrieval and tokenized prompts.  Every output here is integer or bool and
 must match exactly, tie order included."""
 import dataclasses
 
@@ -16,6 +16,7 @@ from repro.core import RGLPipeline as RefPipeline
 from repro.core import Vocab as RefVocab
 from repro.core import filters as ref_filters
 from repro.core import graph_retrieval as ref_gr
+from repro.graph import ELLGraph as RefELLGraph
 from repro.graph import csr_to_ell as ref_csr_to_ell
 from repro.graph import generators as ref_gen
 from repro_torch.core import filters, graph_retrieval as gr
@@ -154,16 +155,30 @@ def test_induced_adjacency_matches(stacks):
 
 
 def test_unported_paths_raise(stacks):
-    _, _, pipe = stacks
-    seeds = torch.zeros((1, 3), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        gr.retrieve_subgraph(pipe.graph, seeds, mode="compact")
+    """The IVF and sharded indexes still raise (ROADMAP Queue 1 items 9 and
+    14); the compact backend, ``auto`` at >= 100k nodes and the non-BFS
+    strategies, which raised before, now run and match the reference."""
+    _, ref_pipe, pipe = stacks
+    seeds = np.array([[1990, 1995, 1995]], np.int32)
+    a = ref_gr.retrieve_subgraph(ref_pipe.graph, jnp.asarray(seeds), mode="compact")
+    b = gr.retrieve_subgraph(pipe.graph, torch.from_numpy(seeds), mode="compact")
+    _same_sub(a, b)
+    np.testing.assert_array_equal(b.overflow.numpy(), np.asarray(a.overflow))
+    # auto on a graph claiming >= AUTO_COMPACT_MIN_NODES nodes takes compact
+    big_ref = RefELLGraph(nbr=ref_pipe.graph.nbr, nbr_mask=ref_pipe.graph.nbr_mask,
+                          num_nodes=ref_gr.AUTO_COMPACT_MIN_NODES)
     big = ELLGraph(nbr=pipe.graph.nbr, nbr_mask=pipe.graph.nbr_mask,
                    num_nodes=gr.AUTO_COMPACT_MIN_NODES)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        gr.retrieve_subgraph(big, seeds, mode="auto")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        gr.retrieve_subgraph(pipe.graph, seeds, "steiner", mode="dense")
+    for hops in (1, 3):  # 1: compact answers; 3: the ball overflows, dense re-runs
+        a = ref_gr.retrieve_subgraph(big_ref, jnp.asarray(seeds), mode="auto", max_hops=hops,
+                                     workset_cap=64)
+        b = gr.retrieve_subgraph(big, torch.from_numpy(seeds), mode="auto", max_hops=hops,
+                                 workset_cap=64)
+        _same_sub(a, b)
+        assert (b.overflow is None) == (a.overflow is None) == (hops == 3)
+    a = ref_gr.retrieve_subgraph(ref_pipe.graph, jnp.asarray(seeds), "steiner", mode="dense")
+    _same_sub(a, gr.retrieve_subgraph(pipe.graph, torch.from_numpy(seeds), "steiner",
+                                      mode="dense"))
     with pytest.raises(ValueError, match="unknown retrieval mode"):
         gr.retrieve_subgraph(pipe.graph, seeds, mode="fast")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
@@ -172,3 +187,27 @@ def test_unported_paths_raise(stacks):
         build_index(pipe.node_emb, kind="sharded", device="cpu")
     with pytest.raises(ValueError, match="lives on"):
         dataclasses.replace(pipe, device="meta")
+
+
+@pytest.mark.parametrize("strategy", ["bfs", "dense", "steiner", "ppr"])
+@pytest.mark.parametrize("mode,cap", [("compact", 64), ("compact", 2048), ("auto", 2048)])
+def test_pipeline_strategies_and_modes_match(stacks, strategy, mode, cap):
+    """Batched retrieval through the pipeline object for every strategy and
+    backend; the compact backend's overflow flags reach ``RetrievalResult``
+    through the filter (cap 64 overflows at 2 hops on this graph)."""
+    g, ref_pipe, pipe = stacks
+    kw = dict(strategy=strategy, retrieval_mode=mode, workset_cap=cap, max_hops=2)
+    rp = dataclasses.replace(ref_pipe, config=dataclasses.replace(ref_pipe.config, **kw))
+    tp = dataclasses.replace(pipe, config=dataclasses.replace(pipe.config, **kw))
+    rng = np.random.default_rng(len(strategy) + cap)
+    q = g.node_feat[rng.choice(N, 3)] + 0.01 * rng.standard_normal((3, 128)).astype(np.float32)
+    a = rp.retrieve_many(q, batch_size=4)
+    b = tp.retrieve_many(q, batch_size=4)
+    np.testing.assert_array_equal(b.seeds.numpy(), np.asarray(a.seeds))
+    _same_sub(a.sub, b.sub)
+    if a.overflow is None:
+        assert b.overflow is None
+    else:
+        np.testing.assert_array_equal(b.overflow.numpy(), np.asarray(a.overflow))
+    if mode == "compact" and strategy != "ppr":
+        assert bool(b.overflow[:3].any()) == (cap == 64)
