@@ -23,7 +23,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    counting each kernel's launches; then a few decode steps and one
    retrieval wave (auto, compact alone, dense alone) are timed and profiled,
    and small fp32 runs check the card's outputs against the CPU's exactly
-   (serving in auto and compact mode, every strategy in both backends).
+   (serving in auto and compact mode, every strategy in both backends);
+6. flash attention: the forward kernel and the two backward kernels against
+   their plain versions at the training shape (B = 1, S = 4096, 24/2 heads,
+   dh = 128, window 4096, bf16), timed beside the plain version and
+   ``scaled_dot_product_attention``;
+7. training: three steps of ``make_train_step`` + ``TrainLoop`` on the
+   full-width, full-depth StarCoder2-3B config (bf16, vocab 49152, remat)
+   at S = 4096, global batch 2 as 2 micro-batches, AdamW as the reference
+   launcher sets it; every step profiled, the flash launch counts asserted
+   (2 * L * n_micro forwards, L * n_micro of each backward kernel); then a
+   1024-token prefill through the forward kernel against the plain
+   attention, one 2-layer full-width step with the kernels against the
+   plain version, and three reduced fp32 steps on the card against the CPU.
 
 The second-to-last line is ``{"kernels": [...]}`` (one record per kernel);
 the last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -44,9 +56,11 @@ import torch
 
 # H100 SXM data-sheet peaks (the roofline the bounds are taken against)
 HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOPS = 989e12
 FP32_FLOPS = 67e12
 INT_OPS = 67e12  # 32-bit integer ops on the CUDA cores, same rate as fp32
 N_NODES = 169_343  # OGBN-Arxiv's node count
+DEV = "cuda"  # the device of the training phases
 
 
 def card_line() -> str:
@@ -103,8 +117,11 @@ def kernel_ms_by_name(prof, per: int) -> dict:
     return by_name
 
 
-def bound(n_bytes: float, n_ops: float, ops_rate: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_rate
+def bound(n_bytes: float, *work: tuple[float, float]) -> tuple[float, str]:
+    """Least time (ms) for moving ``n_bytes`` and doing each ``(operations,
+    rate)`` of ``work`` at the card's peaks, and which of the two bounds it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = sum(n / rate for n, rate in work)
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -177,7 +194,7 @@ def check_topk_sim(emb: torch.Tensor, rng: np.random.Generator) -> dict:
     ms, kernels = device_ms(run)
     plain_ms, _ = device_ms(lambda: ops.topk_similarity(q4, emb, k, use_kernel=False))
     library_ms, _ = device_ms(lambda: torch.topk(q4 @ emb.T, k))
-    b_ms, b_by = bound(4 * (q4.numel() + emb.numel()) + 8 * 4 * k, 2 * 4 * n * d, FP32_FLOPS)
+    b_ms, b_by = bound(4 * (q4.numel() + emb.numel()) + 8 * 4 * k, (2 * 4 * n * d, FP32_FLOPS))
     return {"name": "topk_sim", "route": "cuda", "source": "src/repro_torch/csrc/topk_sim.cu",
             "replaces": "src/repro/kernels/topk_sim/kernel.py:80",
             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -221,7 +238,7 @@ def check_bfs_frontier(nbr: torch.Tensor, mask: torch.Tensor, rng: np.random.Gen
     # bytes the hop must move: every mask byte, the id of every live slot,
     # the frontier in and the reach out
     nnz = len(live)
-    b_ms, b_by = bound(n * kd + 4 * nnz + 2 * 4 * n, 4 * nnz, INT_OPS)
+    b_ms, b_by = bound(n * kd + 4 * nnz + 2 * 4 * n, (4 * nnz, INT_OPS))
     return {"name": "bfs_frontier", "route": "cuda", "source": "src/repro_torch/csrc/bfs_frontier.cu",
             "replaces": "src/repro/kernels/bfs_frontier/kernel.py:49",
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -277,7 +294,7 @@ def check_frontier_expand(nbr: torch.Tensor, mask: torch.Tensor, seeds: torch.Te
     library_ms, _ = device_ms(library)
     q = ids.shape[0]
     rounds = max(1, (cap - 1).bit_length()) + 1
-    b_ms, b_by = bound(5 * q * w + 4 * q * cap, 4 * rounds * q * w, INT_OPS)
+    b_ms, b_by = bound(5 * q * w + 4 * q * cap, (4 * rounds * q * w, INT_OPS))
     hop_mark_ms, hop_kernels = device_ms(lambda: hop(True), calls=5)
     hop_sort_ms, _ = device_ms(lambda: hop(False), calls=5)
     live = int((cand < n).sum())
@@ -488,6 +505,382 @@ def profile_decode(engine, steps: int = 5) -> dict:
             "top_kernels_ms_per_step": dict(top)}
 
 
+
+# ------------------------------------------------------- flash attention ----
+FLASH_KERNELS = (("flash_attn_fwd", "fwd_launches", "src/repro/kernels/flash_attn/kernel.py:86"),
+                 ("flash_attn_bwd_dq", "dq_launches", "src/repro/models/transformer/attention.py:143"),
+                 ("flash_attn_bwd_dkv", "dkv_launches", "src/repro/models/transformer/attention.py:143"))
+
+
+def flash_counters() -> dict:
+    from repro_torch.kernels.flash_attn import kernel
+
+    return {name: getattr(kernel, attr) for name, attr, _ in FLASH_KERNELS}
+
+
+def valid_pairs(s: int, window) -> int:
+    """(q, k) pairs with k <= q and q - k < window, per head."""
+    w = s if window is None else min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def sdpa(q, k, v):
+    """The library yardstick on (B, H, S, dh) tensors: causal attention with
+    GQA (timed only; the port never calls it)."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+
+def flash_close(got, want, row_share: float, name: str) -> float:
+    """Asserts ``|got - want| <= row_share * (the row's max |want|) + 1e-5 *
+    max |want| + 2^-7 * |want|`` element by element, rows along the last
+    axis (see ``check_flash``); returns the largest share of that tolerance
+    any element used."""
+    mag = want.abs()
+    tol = row_share * mag.amax(-1, keepdim=True) + 1e-5 * mag.max() + 2**-7 * mag
+    ratio = (got - want).abs() / tol
+    worst = ratio.max().item()
+    assert worst <= 1.0, (f"{name}: {int((ratio > 1).sum())} of {ratio.numel()} elements "
+                          f"outside the tolerance, worst at {worst:.3g} of it")
+    return worst
+
+
+def check_flash(cfg, rng: np.random.Generator) -> list:
+    """The three flash kernels against their plain versions at the training
+    shape (B = 1, S = 4096, StarCoder2-3B's heads, window 4096, bf16), with
+    times of the kernel, the plain version and SDPA.
+
+    Tolerances: lse and delta are fp32 (``atol`` 1e-4: the same products
+    summed in another order over 4096 keys).  o, dq, dk and dv are bf16 and
+    are held element by element (``flash_close``): ``rtol`` 2^-7, one bf16
+    ulp, since both sides round an fp32 result once; plus an ``atol`` scaled
+    to the element's own row (the last axis: a query row of o and dq, a key
+    row of dk and dv), not to the whole tensor, whose largest rows (the
+    first queries, the first keys) are many times the typical row at 4096
+    keys.  o's row share is 2^-7: p is rounded to bf16 before P·V, and a
+    last-bit difference in an fp32 score can round one p the other way,
+    moving o by at most 2^-8·(p/l)·|v|, under 2^-7 of the row's largest
+    element for every row with two or more keys.  The backward keeps p, dp
+    and ds in fp32, so only the summation order differs: its row share is
+    2^-10.  A floor of 1e-5 of the tensor's largest element covers rows that
+    cancel to zero (dq's first row, where ds = p·(dp − delta) = 0).  On the
+    H100 the largest share of the tolerance any element used read o 0.49,
+    dq 0.82, dk 0.85, dv 0.79: one-ulp rounding differences of elements
+    just above a power of two.  A dv with one rep head's share dropped, or
+    an o off by 2%, fails it (checked on the plain versions on the CPU)."""
+    from repro_torch.kernels.flash_attn import kernel, ref
+
+    b, s, h, kv, dh, w = 1, 4096, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.sliding_window
+    assert w is None or w >= s  # SDPA's is_causal is then the same function
+    cq = cfg.q_chunk
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                   .to(DEV, torch.bfloat16)
+                   for shape in ((b, s, h, dh), (b, s, kv, dh), (b, s, kv, dh), (b, s, h, dh)))
+    use = {}  # the largest share of its tolerance that any element used
+
+    def close(got, want, name, exact_f32=False):
+        got, want = got.float(), want.float()
+        err = (got - want).abs().max().item()
+        if exact_f32:
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5, msg=name)
+        else:
+            use[name] = flash_close(got, want, 2**-7 if name == "o" else 2**-10, name)
+        return err
+
+    o_k, lse_k = kernel.flash_fwd_kernel(q, k, v, w)
+    torch.cuda.synchronize()
+    o_p, lse_p = ref.flash_fwd(q, k, v, w, cq, cq)
+    errs = {"o": close(o_k, o_p, "o"), "lse": close(lse_k, lse_p, "lse", True)}
+    dq_k, delta_k = kernel.flash_bwd_dq_kernel(q, k, v, o_p, do, lse_p, w)
+    dk_k, dv_k = kernel.flash_bwd_dkv_kernel(q, k, v, do, lse_p, delta_k, w)
+    torch.cuda.synchronize()
+    dq_p, delta_p = ref.flash_bwd_dq(q, k, v, o_p, do, lse_p, w, cq, cq)
+    dk_p, dv_p = ref.flash_bwd_dkv(q, k, v, do, lse_p, delta_p, w, cq, cq)
+    errs.update(delta=close(delta_k, delta_p, "delta", True), dq=close(dq_k, dq_p, "dq"),
+                dk=close(dk_k, dk_p, "dk"), dv=close(dv_k, dv_p, "dv"))
+    print(f"flash kernels match their plain versions at B={b} S={s} H={h} KV={kv} dh={dh} "
+          f"window={w} bf16: max abs err {errs}, largest share of the tolerance used {use}",
+          flush=True)
+
+    # times: kernel, plain version, SDPA (on (B, H, S, dh) copies, GQA)
+    fwd_ms, fwd_k = device_ms(lambda: kernel.flash_fwd_kernel(q, k, v, w))
+    dq_ms, _ = device_ms(lambda: kernel.flash_bwd_dq_kernel(q, k, v, o_p, do, lse_p, w))
+    dkv_ms, _ = device_ms(lambda: kernel.flash_bwd_dkv_kernel(q, k, v, do, lse_p, delta_p, w))
+    plain_fwd, _ = device_ms(lambda: ref.flash_fwd(q, k, v, w, cq, cq), calls=3)
+    plain_dq, _ = device_ms(lambda: ref.flash_bwd_dq(q, k, v, o_p, do, lse_p, w, cq, cq), calls=3)
+    plain_dkv, _ = device_ms(lambda: ref.flash_bwd_dkv(q, k, v, do, lse_p, delta_p, w, cq, cq),
+                             calls=3)
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    lib_fwd, lib_fwd_k = device_ms(lambda: sdpa(qt, kt, vt))
+    qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
+    o_lib = sdpa(qg, kg, vg)
+    lib_bwd, _ = device_ms(lambda: torch.autograd.grad(o_lib, (qg, kg, vg), dot, retain_graph=True))
+    lib_err = (o_lib.detach().transpose(1, 2).float() - o_k.float()).abs().max().item()
+
+    pairs = h * valid_pairs(s, w)
+    q_bytes, kv_bytes, row_bytes = 2 * q.numel(), 2 * k.numel(), 4 * b * h * s
+    prod = 2 * dh * pairs  # flops of one (q, k)-pair product over dh
+    # bf16 x bf16 products (s, dp, P.V) could run on the tensor cores with the
+    # reference's numbers; products with an fp32 operand (p or ds) need fp32
+    bounds = {
+        "flash_attn_fwd": bound(2 * q_bytes + 2 * kv_bytes + row_bytes, (2 * prod, BF16_TENSOR_FLOPS)),
+        "flash_attn_bwd_dq": bound(4 * q_bytes + 2 * kv_bytes + 2 * row_bytes,
+                                   (2 * prod, BF16_TENSOR_FLOPS), (prod, FP32_FLOPS)),
+        "flash_attn_bwd_dkv": bound(2 * q_bytes + 4 * kv_bytes + 2 * row_bytes,
+                                    (2 * prod, BF16_TENSOR_FLOPS), (2 * prod, FP32_FLOPS)),
+    }
+    times = {"flash_attn_fwd": (fwd_ms, plain_fwd, lib_fwd, max(errs["o"], errs["lse"])),
+             "flash_attn_bwd_dq": (dq_ms, plain_dq, lib_bwd, max(errs["dq"], errs["delta"])),
+             "flash_attn_bwd_dkv": (dkv_ms, plain_dkv, lib_bwd, max(errs["dk"], errs["dv"]))}
+    records = []
+    for name, _, replaces in FLASH_KERNELS:
+        ms, plain_ms, lib_ms, err = times[name]
+        b_ms, b_by = bounds[name]
+        records.append({
+            "name": name, "route": "cuda", "source": "src/repro_torch/csrc/flash_attn.cu",
+            "replaces": replaces, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "library": ("scaled_dot_product_attention forward" if name.endswith("fwd") else
+                        "scaled_dot_product_attention backward (dq, dk and dv together)"),
+            "bound_fp32_all_ms": 1e3 * (2 if name.endswith("fwd") else
+                                        3 if name.endswith("dq") else 4) * prod / FP32_FLOPS,
+            "shape": f"B={b} S={s} H={h} KV={kv} dh={dh} window={w} bf16 pairs={pairs}",
+        })
+    for rec, names in zip(records, (("o",), ("dq",), ("dk", "dv"))):
+        rec["tolerance_share_used"] = max(use[n] for n in names)
+    records[0]["sdpa_vs_kernel_max_abs_diff"] = lib_err
+    records[0]["device_kernels_ms"] = fwd_k
+    records[0]["library_kernels_ms"] = lib_fwd_k
+    del qg, kg, vg, o_lib
+    return records
+
+
+# -------------------------------------------------------------- training ----
+STEP_GROUPS = (("flash_fwd", "flash_fwd_kernel"), ("flash_bwd_dq", "flash_bwd_dq_kernel"),
+               ("flash_bwd_dkv", "flash_bwd_dkv_kernel"), ("gemm", "nvjet"), ("gemm", "gemm"),
+               ("gemm", "xmma"), ("gemm", "cutlass"))
+
+
+def split_step(by_name: dict) -> dict:
+    """Device ms of a training step grouped as the three flash kernels,
+    cuBLAS GEMMs and everything else (elementwise, reductions, copies)."""
+    out: dict = {}
+    for name, ms in by_name.items():
+        group = next((g for g, frag in STEP_GROUPS if frag in name), "other")
+        out[group] = out.get(group, 0.0) + ms
+    return out
+
+def opt_config(steps: int):
+    """AdamW as the reference launcher configures it."""
+    from repro_torch.training import AdamWConfig
+
+    return AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=steps)
+
+
+def train_step_fn(cfg, n_micro: int, steps: int, use_kernel=None):
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.training import make_train_step
+
+    return make_train_step(
+        lambda p, b: tm.lm_loss(p, b["tokens"], b["loss_mask"], cfg, use_kernel=use_kernel),
+        opt_config(steps), n_microbatches=n_micro)
+
+
+def train_phase(cfg, steps: int = 3, batch: int = 2, n_micro: int = 2, seq: int = 4096):
+    """The training main path: ``make_train_step`` + ``TrainLoop`` on the
+    full-width, full-depth config at the train_4k sequence length, random
+    tokens; every step profiled.  Returns (summary, the trained params)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.train import _lm_data
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.training import TrainLoop
+
+    t0 = time.perf_counter()
+    params = tm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    init_state, step = train_step_fn(cfg, n_micro, steps)
+    state = init_state(params)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    counters = flash_counters()
+    traces: list = []
+
+    def profiled_step(state, batch_):
+        before = {n: c.count for n, c in counters.items()}
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, m = step(state, batch_)
+            torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+        traces.append((prof, m, wall, torch.cuda.max_memory_allocated() / 1e9,
+                       {n: c.count - before[n] for n, c in counters.items()}))
+        return state, m
+
+    data = _lm_data(cfg, batch, seq, seed=0, device=DEV)
+    for c in counters.values():
+        c.reset()
+    state, history = TrainLoop(step_fn=profiled_step, data_iter=data, log_every=1).run(state, steps)
+    launches = {n: c.count for n, c in counters.items()}
+    per_step = []
+    for i, (prof, m, wall, peak, counts) in enumerate(traces):
+        by_name = kernel_ms_by_name(prof, 1)
+        rec = {"step": i + 1, "loss": float(m["loss"]), "nll": float(m["nll"]),
+               "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]), "wall_ms": wall,
+               "device_ms": sum(by_name.values()), "device_ms_split": split_step(by_name),
+               "peak_mem_gb": peak, "launches": counts}
+        if i == 0:
+            rec["top_kernels_ms"] = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12])
+        per_step.append(rec)
+        print(json.dumps({"train_step": rec}), flush=True)
+    del traces
+    L = cfg.n_layers
+    for rec in per_step:  # remat runs each layer's forward twice
+        assert rec["launches"] == {"flash_attn_fwd": 2 * L * n_micro,
+                                   "flash_attn_bwd_dq": L * n_micro,
+                                   "flash_attn_bwd_dkv": L * n_micro}, rec["launches"]
+        assert np.isfinite(rec["loss"]) and np.isfinite(rec["grad_norm"]), rec
+    assert launches == {"flash_attn_fwd": 2 * L * n_micro * steps,
+                        "flash_attn_bwd_dq": L * n_micro * steps,
+                        "flash_attn_bwd_dkv": L * n_micro * steps}, launches
+    assert [h[0] for h in history] == list(range(1, steps + 1))
+    # one more step without the profiler, after the counted run: host wall time
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, _ = step(state, next(data))
+    torch.cuda.synchronize()
+    unprofiled_ms = 1e3 * (time.perf_counter() - t)
+    # the optimizer update alone (fresh zero gradients), device time
+    from repro_torch.training.optimizer import adamw_update
+    from repro_torch.tree import tree_leaves, tree_map
+
+    zeros = tree_map(torch.zeros_like, state["params"])
+    upd_ms, _ = device_ms(lambda: adamw_update(zeros, state["opt"], state["params"],
+                                               opt_config(steps)), calls=2)
+    del zeros
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    summary = {"config": cfg.name, "n_layers": L, "d_model": cfg.d_model, "vocab": cfg.vocab,
+               "seq": seq, "global_batch": batch, "n_microbatches": n_micro, "steps": steps,
+               "params": n_params, "setup_s": setup_s, "launches": launches,
+               "unprofiled_step_wall_ms": unprofiled_ms,
+               "optimizer_update_device_ms": upd_ms, "steps_detail": per_step}
+    return summary, state["params"]
+
+
+
+def per_layer_leaves(tree: dict) -> dict:
+    """Name -> tensor, the stacked ``layers`` leaves split per layer."""
+    out = {}
+    for key, val in tree.items():
+        if key == "layers" and isinstance(val, dict):
+            out.update({f"layers.{n}.{i}": t[i] for n, t in val.items() for i in range(t.shape[0])})
+        elif isinstance(val, dict):
+            out.update({f"{key}.{n}": t for n, t in val.items()})
+        else:
+            out[key] = val
+    return out
+
+
+def kernels_vs_plain_step(cfg, n_layers: int = 2, seq: int = 4096) -> dict:
+    """One full-width train step with ``n_layers`` layers, run twice from
+    the same weights and data: the flash kernels, then the plain version.
+
+    At random init the loss sits near ln V whatever attention computes, so
+    the step is held by its gradients, leaf by leaf and layer by layer: after
+    the first step AdamW's fp32 first moment is (1 − b1) times the clipped
+    gradient, and the relative L2 gap ``|m_k − m_p| / |m_p|`` of every leaf
+    must stay under 2e-2; a wrong attention moves the gradients of wq, wk
+    and wv by a share of order one.  Loss ``rtol`` 2e-5, grad norm ``rtol``
+    1e-4.  On the H100 the gaps read 0.0022–0.0090 per leaf, 5.1e-6 in the
+    loss and 1.2e-6 in the grad norm.  The two attentions compute the same
+    fp32 arithmetic in another order, so where a p or an output element sits
+    at a bf16 rounding boundary the two round it apart by one ulp; those
+    flips pass through the bf16 residual stream and the bf16 gradient
+    accumulation, so the bf16 gradients differ by ~1% where the fp32
+    reduced config's differ by ~5e-7 (``tests/test_torch_cuda.py``)."""
+    from repro_torch.launch.train import _lm_data
+    from repro_torch.models.transformer import model as tm
+
+    small = dataclasses.replace(cfg, n_layers=n_layers)
+    base = tm.init_params(small, torch.Generator(device=DEV).manual_seed(1), device=DEV)
+    batch = next(_lm_data(small, 2, seq, seed=1, device=DEV))
+    out, moments = {}, {}
+    for use_kernel in (True, False):
+        params = {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict) else v.clone())
+                  for k, v in base.items()}
+        init, step = train_step_fn(small, 2, 3, use_kernel=use_kernel)
+        state = init(params)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        out[use_kernel] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                           "wall_ms": 1e3 * (time.perf_counter() - t)}
+        moments[use_kernel] = per_layer_leaves(state["opt"]["m"])
+        del state, params
+    grad_gap = {name: ((moments[True][name] - want).norm() / want.norm()).item()
+                for name, want in moments[False].items()}
+    del moments
+    k, p = out[True], out[False]
+    assert abs(k["loss"] - p["loss"]) <= 2e-5 * abs(p["loss"]), out
+    assert abs(k["grad_norm"] - p["grad_norm"]) <= 1e-4 * p["grad_norm"], out
+    worst = max(grad_gap, key=grad_gap.get)
+    assert grad_gap[worst] <= 2e-2, grad_gap
+    return {"n_layers": n_layers, "seq": seq, "kernels": k, "plain": p,
+            "grad_rel_gap": grad_gap, "worst_grad_rel_gap": [worst, grad_gap[worst]]}
+
+
+def prefill_check(params, cfg, bucket: int = 1024) -> dict:
+    """One serving prefill of a ``bucket``-token prompt at full width through
+    the forward kernel (S > 512 takes flash attention), against the same
+    prefill with the plain attention.  Logits within 2e-2 of their largest
+    magnitude: bf16 activations round apart by one ulp where an attention
+    output sits at a rounding boundary, through every layer."""
+    from repro_torch.models.transformer import model as tm
+
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, bucket)).astype(np.int32)).to(DEV)
+    true_len = torch.tensor([bucket - 7], dtype=torch.int32, device=DEV)
+    fwd = flash_counters()["flash_attn_fwd"]
+    fwd.reset()
+    lg_k, _ = tm.prefill(params, tokens, true_len, cfg, bucket)
+    torch.cuda.synchronize()
+    launched = fwd.count
+    lg_p, _ = tm.prefill(params, tokens, true_len, cfg, bucket, use_kernel=False)
+    assert launched == cfg.n_layers, launched
+    assert bool(torch.isfinite(lg_k).all())
+    err = (lg_k - lg_p).abs().max().item()
+    scale = lg_p.abs().max().item()
+    assert err <= 2e-2 * scale, (err, scale)
+    return {"bucket": bucket, "launches": launched, "max_abs_err": err, "max_abs_logit": scale,
+            "same_argmax": bool(torch.equal(lg_k.argmax(-1), lg_p.argmax(-1)))}
+
+
+def train_cross_device_check(reduced_cfg, steps: int = 3, seq: int = 1024) -> dict:
+    """Three training steps of the reduced (fp32) config at ``seq`` tokens
+    (the chunked branch: the kernels on the card, the plain version on the
+    CPU) from the same weights and data.  Losses within ``rtol`` 1e-4: fp32
+    everywhere (no TF32), sums in another order, and Adam's division by
+    sqrt(v) + eps amplifies last-bit gradient differences where |g| ~ eps."""
+    from repro_torch.launch.train import _lm_data
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.training import TrainLoop
+
+    host = tm.init_params(reduced_cfg, torch.Generator().manual_seed(0), device="cpu")
+    losses = {}
+    for dev in (DEV, "cpu"):
+        params = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict) else v.to(dev))
+                  for k, v in host.items()}
+        init, step = train_step_fn(reduced_cfg, 2, steps)
+        loop = TrainLoop(step_fn=step, data_iter=_lm_data(reduced_cfg, 2, seq, device=dev),
+                         log_every=1, log_fn=lambda *_: None)
+        losses[dev] = [h[1] for h in loop.run(init(params), steps)[1]]
+    np.testing.assert_allclose(losses[DEV], losses["cpu"], rtol=1e-4)
+    return losses
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -539,9 +932,30 @@ def main() -> int:
     print(f"cross-device check: card and CPU agree on nodes, prompts and tokens (auto, "
           f"compact) and on every strategy in both backends ({overflowed} overflowing rows)",
           flush=True)
-
     for rec in records:
         rec["launches"] = mp["launches"][rec["name"]]
+    torch.cuda.empty_cache()
+
+    cfg = spec.model_cfg
+    flash_records = check_flash(cfg, rng)
+    train, params = train_phase(cfg)
+    print(json.dumps({"training": "starcoder2-3b bf16 full width and depth, train_4k, "
+                      "global batch 2 as 2 micro-batches", "card": card,
+                      **{k: v for k, v in train.items() if k != "steps_detail"}}), flush=True)
+    prefill = prefill_check(params, cfg)
+    print(json.dumps({"prefill_1024": prefill}), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    both = kernels_vs_plain_step(cfg)
+    print(json.dumps({"kernels_vs_plain_step": both}), flush=True)
+    losses = train_cross_device_check(spec.reduced_cfg)
+    print(f"cross-device training check: card and CPU losses agree over 3 steps {losses}",
+          flush=True)
+    for rec in flash_records:
+        rec["launches"] = train["launches"][rec["name"]]
+    records += flash_records
+
+    for rec in records:
         print(json.dumps({"kernel": rec["name"], "card": card, **rec}))
     print(json.dumps({"kernels": records}))
     print(f"card: {card}")

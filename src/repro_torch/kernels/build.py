@@ -21,7 +21,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("topk_sim.cu", "bfs_frontier.cu", "frontier_expand.cu")
+SOURCES = ("topk_sim.cu", "bfs_frontier.cu", "frontier_expand.cu", "flash_attn.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

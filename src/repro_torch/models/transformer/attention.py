@@ -1,5 +1,5 @@
-"""Attention: RoPE, dense and chunked (online-softmax) causal/sliding-window
-attention for prefill, and KV-cache decode attention.
+"""Attention: RoPE, dense and chunked (flash) causal/sliding-window attention
+for training and prefill, and KV-cache decode attention.
 
 Layouts are the reference's (``repro.models.transformer.attention``):
 queries (B, S, H, dh), keys/values (B, S, KV, dh), GQA by grouping the H
@@ -13,6 +13,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from repro_torch.kernels.flash_attn import ops as fa_ops
 
 NEG = -1e30
 
@@ -29,64 +31,40 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
-def _tile_mask(qi: int, kj: int, cq: int, ck: int, window, device) -> torch.Tensor:
-    """(Cq, Ck) causal/windowed mask for the tile at q-offset qi, kv-offset kj."""
-    iq = qi + torch.arange(cq, device=device)[:, None]
-    jk = kj + torch.arange(ck, device=device)[None, :]
-    m = jk <= iq
-    if window is not None:
-        m &= (iq - jk) < window
-    return m
+class _Flash(torch.autograd.Function):
+    """Flash attention with the FlashAttention-2 backward (the counterpart
+    of the reference's ``_flash`` custom VJP): the forward saves
+    (q, k, v, o, lse) and the backward recomputes score tiles from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, cq, ck, use_kernel):
+        o, lse = fa_ops.flash_fwd(q, k, v, window=window, q_chunk=cq, kv_chunk=ck,
+                                  use_kernel=use_kernel)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (window, cq, ck, use_kernel)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        window, cq, ck, use_kernel = ctx.args
+        dq, dk, dv = fa_ops.flash_bwd(q, k, v, o, lse, do, window=window, q_chunk=cq,
+                                      kv_chunk=ck, use_kernel=use_kernel)
+        return dq, dk, dv, None, None, None, None
 
 
 def chunked_attention(q, k, v, *, window: Optional[int] = None, q_chunk: int = 512,
-                      kv_chunk: int = 512, use_kernel: bool = False) -> torch.Tensor:
-    """Flash-style attention forward: a loop over (q-chunk, kv-chunk) tiles
-    with online-softmax accumulators, so the largest intermediate is one
-    (B, KV, rep, Cq, Ck) tile instead of (B, H, S, S)."""
-    if use_kernel:
-        raise NotImplementedError(
-            "the flash_attn kernel is not ported yet: ROADMAP Queue 2 item 3"
-        )
-    s = q.shape[1]
-    cq = min(q_chunk, s)
-    ck = min(kv_chunk, s)
-    if s % cq or s % ck:
-        raise ValueError(f"sequence {s} is not a multiple of the chunks ({cq}, {ck})")
-    return _flash_fwd(q, k, v, window, cq, ck)
+                      kv_chunk: int = 512, use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """Differentiable flash attention: q (B,S,H,dh), k/v (B,S,KV,dh).
 
-
-def _flash_fwd(q, k, v, window, cq: int, ck: int) -> torch.Tensor:
-    b, s, h, dh = q.shape
-    kvh = k.shape[2]
-    rep = h // kvh
-    nq, nk = s // cq, s // ck
-    scale = dh**-0.5
-    qg = q.reshape(b, nq, cq, kvh, rep, dh)
-    kg = k.reshape(b, nk, ck, kvh, dh)
-    vg = v.reshape(b, nk, ck, kvh, dh)
-    outs = []
-    for qi in range(nq):
-        qb = qg[:, qi].float()  # (B, Cq, KV, rep, dh)
-        m = torch.full((b, kvh, rep, cq), NEG, dtype=torch.float32, device=q.device)
-        l = torch.zeros((b, kvh, rep, cq), dtype=torch.float32, device=q.device)
-        o = torch.zeros((b, kvh, rep, cq, dh), dtype=torch.float32, device=q.device)
-        for kj in range(nk):
-            kb, vb = kg[:, kj], vg[:, kj]  # (B, Ck, KV, dh)
-            s_ = torch.einsum("bqkrd,bckd->bkrqc", qb, kb.float()) * scale
-            tm = _tile_mask(qi * cq, kj * ck, cq, ck, window, q.device)
-            s_ = torch.where(tm, s_, NEG)
-            m_new = torch.maximum(m, s_.amax(dim=-1))
-            p = torch.exp(s_ - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            o = o * corr[..., None] + torch.einsum(
-                "bkrqc,bckd->bkrqd", p.to(vb.dtype).float(), vb.float()
-            )
-            m = m_new
-        outs.append((o / torch.clamp(l[..., None], min=1e-20)).to(q.dtype))
-    out = torch.stack(outs, dim=1)  # (B, nq, KV, rep, Cq, dh)
-    return out.permute(0, 1, 4, 2, 3, 5).reshape(b, s, h, dh)
+    The largest intermediate is one (B, KV, rep, Cq, Ck) tile instead of
+    (B, H, S, S), forward and backward.  A CUDA tensor runs the hand-written
+    kernels (``kernels/flash_attn``), a CPU tensor the plain version tiled by
+    (q_chunk, kv_chunk); ``use_kernel=False`` forces the plain version on
+    the card."""
+    if use_kernel is None:
+        use_kernel = q.is_cuda
+    return _Flash.apply(q, k, v, window, q_chunk, kv_chunk, use_kernel)
 
 
 def dense_attention(q, k, v, *, window: Optional[int] = None) -> torch.Tensor:

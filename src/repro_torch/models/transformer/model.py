@@ -1,12 +1,14 @@
-"""Decoder-only LM for serving: init, prefill, decode over a contiguous KV
-arena.  Dense SwiGLU FFN, GQA + RoPE, optional sliding window.
+"""Decoder-only LM: init, train forward with a streamed loss, prefill and
+decode over a contiguous KV arena.  Dense SwiGLU FFN, GQA + RoPE, optional
+sliding window.
 
 Parameters are a plain dict with the reference's structure and layout:
 ``embed`` (V, D), ``head`` (D, V), ``ln_f`` (D,), and ``layers`` whose
-leaves are stacked on a leading L axis (``wq`` (L, D, H*dh), ...).  A Python
-loop over layers stands where the reference scans.  Projections, the FFN and
-the LM head are plain matmuls (cuBLAS on the card), as the reference leaves
-them to XLA.
+leaves are stacked on a leading L axis (``wq`` (L, D, H*dh), ...).  Training
+may pass ``layers`` as a list of per-layer dicts instead (see
+:func:`layer_params`).  A Python loop over layers stands where the reference
+scans.  Projections, the FFN and the LM head are plain matmuls (cuBLAS on
+the card), as the reference leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models.transformer import attention as attn
@@ -98,8 +101,15 @@ def params_from_jax(params_np: dict, cfg: TransformerConfig, device="cuda") -> d
     }
 
 
-def _layer(params: dict, i: int) -> dict:
-    return {name: v[i] for name, v in params["layers"].items()}
+def layer_params(params: dict, i: int) -> dict:
+    """Layer ``i``'s weights: ``params["layers"]`` is either the stacked
+    dict (serving, the reference's layout) or a list of per-layer dicts
+    (training: indexing a stacked leaf that requires grad would make
+    autograd allocate and zero-fill a full (L, ...) gradient per layer)."""
+    layers = params["layers"]
+    if isinstance(layers, (list, tuple)):
+        return layers[i]
+    return {name: v[i] for name, v in layers.items()}
 
 
 def _attn_proj(p, xn, cfg: TransformerConfig):
@@ -114,6 +124,79 @@ def _ffn(p, x, cfg: TransformerConfig):
     xn = rms_norm(x, p["ln2"], cfg.norm_eps)
     y = (F.silu(xn @ p["w1"]) * (xn @ p["w3"])) @ p["w2"]
     return x + y.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# train-time forward + streamed loss
+# --------------------------------------------------------------------------
+def _attention(q, k, v, cfg: TransformerConfig, use_kernel):
+    if q.shape[1] <= max(cfg.q_chunk, 256):
+        return attn.dense_attention(q, k, v, window=cfg.sliding_window)
+    return attn.chunked_attention(q, k, v, window=cfg.sliding_window, q_chunk=cfg.q_chunk,
+                                  kv_chunk=cfg.kv_chunk, use_kernel=use_kernel)
+
+
+def _layer_train(x, p, cfg: TransformerConfig, positions, use_kernel=None):
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _attn_proj(p, xn, cfg)
+    q = attn.rope(q, positions, cfg.rope_theta)
+    k = attn.rope(k, positions, cfg.rope_theta)
+    o = _attention(q, k, v, cfg, use_kernel)
+    b, s, h, dh = o.shape
+    x = x + (o.reshape(b, s, h * dh) @ p["wo"]).to(x.dtype)
+    return _ffn(p, x, cfg)
+
+
+def backbone(params, tokens: torch.Tensor, cfg: TransformerConfig, use_kernel=None):
+    """tokens (B, S) -> (hidden (B, S, D), aux_loss).  With ``cfg.remat``
+    each layer is recomputed in the backward (non-reentrant
+    ``torch.utils.checkpoint``), so only layer inputs are kept."""
+    _check_supported(cfg)
+    x = params["embed"][tokens.long()]
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)[None, :]
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(cfg.n_layers):
+        p = layer_params(params, i)
+        if remat:  # the layer draws no random numbers: no RNG state to keep
+            x = checkpoint(_layer_train, x, p, cfg, positions, use_kernel,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _layer_train(x, p, cfg, positions, use_kernel)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)  # dense FFN: no router loss
+    return rms_norm(x, params["ln_f"], cfg.norm_eps), aux
+
+
+def lm_logits(params, tokens, cfg: TransformerConfig, use_kernel=None):
+    """Materialized logits — tests and small shapes only."""
+    x, _ = backbone(params, tokens, cfg, use_kernel)
+    return x.float() @ params["head"].float()
+
+
+def lm_loss(params, tokens, loss_mask, cfg: TransformerConfig, aux_weight: float = 0.01,
+            use_kernel=None):
+    """Next-token cross-entropy, streamed over sequence chunks of
+    ``cfg.loss_chunk``: (B, chunk, V) fp32 logit blocks instead of one
+    (B, S, V) product (the backward keeps each block for its logsumexp).
+
+    tokens (B, S) int; loss_mask (B, S) — mask[t] gates the prediction of
+    token[t+1].  Returns (loss, metrics dict ``nll``, ``aux``, ``tokens``).
+    """
+    x, aux = backbone(params, tokens, cfg, use_kernel)
+    s = x.shape[1]
+    n_pred = s - 1
+    c = min(cfg.loss_chunk, n_pred)
+    head = params["head"].float()
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for st in range(0, n_pred, c):  # nc full chunks, then the remainder
+        en = min(st + c, n_pred)
+        lg = x[:, st:en].float() @ head  # (B, c, V)
+        tgt = torch.gather(lg, -1, tokens[:, st + 1:en + 1, None].long())[..., 0]
+        mc = loss_mask[:, st:en].float()
+        nll = nll + ((torch.logsumexp(lg, dim=-1) - tgt) * mc).sum()
+        cnt = cnt + mc.sum()
+    loss = nll / torch.clamp(cnt, min=1.0)
+    return loss + aux_weight * aux, {"nll": loss, "aux": aux, "tokens": cnt}
 
 
 # --------------------------------------------------------------------------
@@ -141,10 +224,12 @@ def init_cache(cfg: TransformerConfig, batch: int, cache_len: int, device="cuda"
 
 @torch.no_grad()
 def prefill(params, tokens: torch.Tensor, true_len: torch.Tensor,
-            cfg: TransformerConfig, cache_len: int):
+            cfg: TransformerConfig, cache_len: int, use_kernel=None):
     """Run the prompt, fill a fresh cache, return (next_token_logits, cache).
 
     tokens (B, S) left-aligned, padded; true_len (B,).  Requires S <= cache_len.
+    Prompts longer than ``max(q_chunk, 256)`` take flash attention
+    (``use_kernel`` as in :func:`attention.chunked_attention`).
     """
     _check_supported(cfg)
     b, s = tokens.shape
@@ -157,16 +242,12 @@ def prefill(params, tokens: torch.Tensor, true_len: torch.Tensor,
     kc = torch.zeros(shape, dtype=x.dtype, device=dev)
     vc = torch.zeros(shape, dtype=x.dtype, device=dev)
     for i in range(cfg.n_layers):
-        p = _layer(params, i)
+        p = layer_params(params, i)
         xn = rms_norm(x, p["ln1"], cfg.norm_eps)
         q, k, v = _attn_proj(p, xn, cfg)
         q = attn.rope(q, positions, cfg.rope_theta)
         k = attn.rope(k, positions, cfg.rope_theta)
-        if s <= max(cfg.q_chunk, 256):
-            o = attn.dense_attention(q, k, v, window=cfg.sliding_window)
-        else:
-            o = attn.chunked_attention(q, k, v, window=cfg.sliding_window,
-                                       q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+        o = _attention(q, k, v, cfg, use_kernel)
         x = x + (o.reshape(b, s, -1) @ p["wo"]).to(x.dtype)
         x = _ffn(p, x, cfg)
         kc[i, :, :s] = k
@@ -197,7 +278,7 @@ def decode_step(params, cache: KVCache, token: torch.Tensor, cfg: TransformerCon
     pos[bidx, slot] = cur
     x = params["embed"][token.long()][:, None]  # (B, 1, D)
     for i in range(cfg.n_layers):
-        p = _layer(params, i)
+        p = layer_params(params, i)
         xn = rms_norm(x, p["ln1"], cfg.norm_eps)
         q, k, v = _attn_proj(p, xn, cfg)
         q = attn.rope(q, cur[:, None], cfg.rope_theta)

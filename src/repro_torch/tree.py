@@ -1,0 +1,20 @@
+"""Nested-dict/list parameter trees: the two ``jax.tree`` operations the
+training code needs."""
+from __future__ import annotations
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the matching leaves of
+    ``rest``), keeping dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in ``tree_map`` order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out

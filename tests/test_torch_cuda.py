@@ -1,12 +1,18 @@
 """Hand-written kernels against their plain versions on the card, at edge
 shapes the main path does not reach (query groups, odd widths, tiny N,
-ragged candidate rows, worksets of one id or of more than 48 KB).
+ragged candidate rows, worksets of one id or of more than 48 KB; flash
+attention over head dims, GQA ratios, windows, both dtypes and ragged S).
 Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere.
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Scores within ``atol=1e-5`` (fp32 dot products of unit vectors, summed in
 another order); ids, BFS reach, workset marks and retrieved subgraphs exact.
+Flash attention: fp32 within ``atol=rtol=1e-4`` (the same products summed
+in another order over up to S keys); bf16 within one bf16 ulp
+(``rtol=2**-7``) plus ``2**-7 * max|ref|`` absolute, since p is rounded to
+bf16 before P·V and a last-bit difference in an fp32 score can round it the
+other way, and every output is rounded to bf16 once.
 """
 import numpy as np
 import pytest
@@ -185,3 +191,164 @@ def test_retrieval_on_the_card_matches_the_cpu(dev):
         out.append([t.cpu() for t in (res.seeds, res.nodes, res.mask, res.dist)])
     for a, b in zip(*out):
         assert torch.equal(a, b)
+
+
+def _flash_close(got, want, what):
+    """fp32: ``atol`` and ``rtol`` 1e-4 (the same fp32 arithmetic summed in
+    another order).  bf16, element by element: ``rtol`` 2^-7, one bf16 ulp,
+    since both sides round an fp32 result once, plus an ``atol`` scaled to
+    the element's own row (the last axis), not to the whole tensor, whose
+    first rows are many times the typical one.  o's row share is 2^-7: p is
+    rounded to bf16 before P·V, and a last-bit difference in an fp32 score
+    can round one p the other way, moving o by at most 2^-8·(p/l)·|v|, under
+    2^-7 of the row's largest element once a row has two keys.  dq, dk and
+    dv keep p and ds in fp32, so their row share is 2^-10.  A floor of 1e-5
+    of the largest element covers rows that cancel to zero (dq's first).  At
+    the 4096-token training shape the H100 used at most 0.49 (o), 0.82 (dq),
+    0.85 (dk) and 0.79 (dv) of it, in ``chip_smoke.py``'s ``flash_close``."""
+    got, want = got.float(), want.float()
+    if what.endswith("fp32"):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4, msg=what)
+        return
+    mag = want.abs()
+    row_share = 2**-7 if what.startswith("o ") else 2**-10
+    tol = row_share * mag.amax(-1, keepdim=True) + 1e-5 * mag.max() + 2**-7 * mag
+    bad = (got - want).abs() > tol
+    assert not bad.any(), f"{what}: {int(bad.sum())} of {bad.numel()} elements off"
+
+
+FLASH_CASES = [  # (B, S, H, KV, dh, window, dtype, plain chunk)
+    (1, 256, 4, 4, 16, None, torch.float32, 64),      # rep 1
+    (2, 320, 8, 2, 64, 100, torch.bfloat16, 64),      # rep 4, window < S
+    (1, 512, 12, 1, 128, 1024, torch.float32, 128),   # rep 12, window >= S
+    (1, 192, 24, 2, 128, None, torch.bfloat16, 64),   # the main path's heads
+    (2, 96, 4, 1, 64, 7, torch.float32, 32),          # S not a multiple of the 64-row tile
+    (1, 160, 12, 1, 16, 33, torch.bfloat16, 32),      # rep 12, ragged S, window
+    (1, 4096, 24, 2, 128, 4096, torch.bfloat16, 512),  # the training shape
+]
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh,window,dtype,chunk", FLASH_CASES)
+def test_flash_attn_kernels_match_plain(dev, b, s, h, kv, dh, window, dtype, chunk):
+    from repro_torch.kernels.flash_attn import kernel, ref
+
+    rng = np.random.default_rng(s + h + dh)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+                   for shape in ((b, s, h, dh), (b, s, kv, dh), (b, s, kv, dh), (b, s, h, dh)))
+    counts = [c.count for c in (kernel.fwd_launches, kernel.dq_launches, kernel.dkv_launches)]
+    o_k, lse_k = kernel.flash_fwd_kernel(q, k, v, window)
+    o_p, lse_p = ref.flash_fwd(q, k, v, window, chunk, chunk)
+    dq_k, delta_k = kernel.flash_bwd_dq_kernel(q, k, v, o_p, do, lse_p, window)
+    dk_k, dv_k = kernel.flash_bwd_dkv_kernel(q, k, v, do, lse_p, delta_k, window)
+    torch.cuda.synchronize()
+    assert [c.count for c in (kernel.fwd_launches, kernel.dq_launches,
+                              kernel.dkv_launches)] == [n + 1 for n in counts]
+    dq_p, delta_p = ref.flash_bwd_dq(q, k, v, o_p, do, lse_p, window, chunk, chunk)
+    dk_p, dv_p = ref.flash_bwd_dkv(q, k, v, do, lse_p, delta_p, window, chunk, chunk)
+    tag = "fp32" if dtype == torch.float32 else "bf16"
+    _flash_close(o_k, o_p, f"o {tag}")
+    torch.testing.assert_close(lse_k, lse_p, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(delta_k, delta_p, atol=1e-3, rtol=1e-5)
+    for name, got, want in (("dq", dq_k, dq_p), ("dk", dk_k, dk_p), ("dv", dv_k, dv_p)):
+        _flash_close(got, want, f"{name} {tag}")
+
+
+def test_chunked_attention_launches_each_kernel_once(dev):
+    from repro_torch.kernels.flash_attn import kernel
+    from repro_torch.models.transformer import attention as attn
+
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+               .requires_grad_() for shape in ((1, 128, 4, 16), (1, 128, 2, 16), (1, 128, 2, 16)))
+    counters = (kernel.fwd_launches, kernel.dq_launches, kernel.dkv_launches)
+    before = [c.count for c in counters]
+    o = attn.chunked_attention(q, k, v, window=50, q_chunk=64, kv_chunk=64)
+    o.sum().backward()
+    torch.cuda.synchronize()
+    assert [c.count for c in counters] == [n + 1 for n in before]
+    grads = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    attn.chunked_attention(q, k, v, window=50, q_chunk=64, kv_chunk=64,
+                           use_kernel=False).sum().backward()
+    assert [c.count for c in counters] == [n + 1 for n in before]
+    for got, t in zip(grads, (q, k, v)):
+        torch.testing.assert_close(got, t.grad, atol=1e-4, rtol=1e-4)
+
+
+def test_flash_attn_refuses_what_it_does_not_take(dev):
+    from repro_torch.kernels.flash_attn import kernel
+
+    def qkv(dtype=torch.bfloat16, s=64, h=4, kv=2, dh=16):
+        return (torch.zeros((1, s, h, dh), dtype=dtype, device=dev),
+                torch.zeros((1, s, kv, dh), dtype=dtype, device=dev),
+                torch.zeros((1, s, kv, dh), dtype=dtype, device=dev))
+
+    before = kernel.fwd_launches.count
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        kernel.flash_fwd_kernel(*qkv(torch.float16))
+    with pytest.raises(ValueError, match="head dims"):
+        kernel.flash_fwd_kernel(*qkv(dh=48))
+    with pytest.raises(ValueError, match="multiple of KV"):
+        kernel.flash_fwd_kernel(*qkv(h=5))
+    with pytest.raises(ValueError, match="window"):
+        kernel.flash_fwd_kernel(*qkv(), window=0)
+    q, k, v = qkv()
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.flash_fwd_kernel(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="one dtype"):
+        kernel.flash_fwd_kernel(q, k.float(), v)
+    assert kernel.fwd_launches.count == before
+
+
+def test_reduced_train_step_kernels_match_plain(dev):
+    """One train step of the reduced StarCoder2 config at S = 1024 (the
+    chunked branch, window 16) with the kernels and with the plain version,
+    from the same weights and data, all fp32 (no TF32).
+
+    Held: loss and grad norm within ``rtol`` 1e-5; every leaf's gradient,
+    read from AdamW's first moment (after one step it is (1 − b1) times the
+    clipped gradient), within a relative L2 gap of 1e-5 (sums in another
+    order; the H100 read at most 5.2e-7); and every leaf's weight change
+    within a relative L2 gap of 1e-3 (read at most 2.4e-4).  The change is
+    looser than the gradient because Adam divides by sqrt(v) + eps, which
+    turns a last-bit gradient difference into a visible step difference
+    where |g| is near eps (one embedding element of 8192 stepped 4.3e-6
+    apart, 2% of its step of lr = 2e-4).  A missing or wrong update gives a
+    gap of order one."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import kernel
+    from repro_torch.launch.train import _lm_data
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.training import AdamWConfig, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("starcoder2-3b").reduced_cfg
+    host = tm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = next(_lm_data(cfg, 2, 1024, device=dev))
+    out, launched = [], []
+    for use_kernel in (True, False):
+        before = kernel.fwd_launches.count
+        params = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict) else v.to(dev))
+                  for k, v in host.items()}
+        init, step = make_train_step(
+            lambda p, b: tm.lm_loss(p, b["tokens"], b["loss_mask"], cfg, use_kernel=use_kernel),
+            AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=3), n_microbatches=2)
+        state, metrics = step(init(params), batch)
+        out.append((metrics, tree_leaves(state["opt"]["m"]), tree_leaves(state["params"])))
+        launched.append(kernel.fwd_launches.count - before)
+    # 2 layers x 2 micro-batches, each layer's forward run again by remat
+    assert launched == [2 * cfg.n_layers * 2, 0]
+    (m_k, g_k, p_k), (m_p, g_p, p_p) = out
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(m_k[key], m_p[key], atol=0, rtol=1e-5)
+    for a, b in zip(g_k, g_p):
+        gap = ((a - b).norm() / b.norm()).item()
+        assert gap <= 1e-5, gap
+    lr_1 = float(m_k["lr"])
+    assert 1e-4 <= lr_1 <= 1e-3, lr_1
+    for a, b, before in zip(p_k, p_p, tree_leaves(host)):
+        step_k, step_p = a.cpu() - before, b.cpu() - before
+        assert step_p.abs().max().item() > lr_1 / 2  # the step moved the leaf
+        gap = ((step_k - step_p).norm() / step_p.norm()).item()
+        assert gap <= 1e-3, gap

@@ -1,0 +1,132 @@
+"""Port flash attention vs the reference on the CPU, same inputs (numpy,
+seeded): the plain forward against the Pallas kernel in interpret mode and
+against the dense oracle, ``lse`` against the reference's ``_flash_fwd``,
+and ``chunked_attention``'s value and gradients against ``jax.vjp`` of the
+reference's custom-VJP ``chunked_attention``.
+
+Tolerances: fp32 ``atol=rtol=2e-5`` for outputs (the reference's own sweep
+tolerance: both sides sum the same products in another order) and ``1e-4``
+for gradients (each is a sum over S keys of products of recomputed
+probabilities, summed in another order).  bf16 outputs within ``1e-2``
+absolute: p is rounded to bf16 before P·V on both sides, and a last-bit
+difference in an fp32 score can round p the other way, which moves an
+output by one bf16 ulp (2^-8 relative to |o| <= ~3).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attn import ops as ref_fops
+from repro.kernels.flash_attn import ref as ref_fref
+from repro.models.transformer import attention as ref_attn
+from repro_torch.kernels.flash_attn import kernel as fa_kernel
+from repro_torch.kernels.flash_attn import ops, ref
+from repro_torch.models.transformer import attention as attn
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _qkv(seed, b, s, h, kv, dh, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(dtype)
+            for shape in ((b, s, h, dh), (b, s, kv, dh), (b, s, kv, dh))]
+
+
+def _t(*xs):
+    return [torch.from_numpy(x) for x in xs]
+
+
+@pytest.mark.parametrize("s,h,kv,dh,w,blk", [
+    (128, 4, 4, 32, None, 64),
+    (256, 4, 2, 64, None, 128),
+    (256, 8, 1, 32, 64, 64),   # MQA + window
+    (192, 4, 2, 32, 100, 64),  # window not a multiple of the block
+])
+def test_plain_forward_matches_pallas_interpret(s, h, kv, dh, w, blk):
+    q, k, v = _qkv(s + h, 2, s, h, kv, dh)
+    want = ref_fops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                    window=w, q_blk=blk, kv_blk=blk)
+    got, _ = ops.flash_fwd(*_t(q, k, v), window=w, q_chunk=blk, kv_chunk=blk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    oracle = ref_fref.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), window=w)
+    np.testing.assert_allclose(ref.attention(*_t(q, k, v), window=w).numpy(),
+                               np.asarray(oracle), **TOL)
+
+
+def test_plain_forward_bf16_matches_pallas_interpret():
+    q, k, v = _qkv(7, 1, 128, 2, 2, 32)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = ref_fops.flash_attention(jq, jk, jv, q_blk=64, kv_blk=64)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    got, _ = ops.flash_fwd(tq, tk, tv, q_chunk=64, kv_chunk=64)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=1e-2)
+
+
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("rep", [1, 2, 4])
+def test_chunked_attention_value_and_grads_match_vjp(window, rep):
+    kv, s, dh = 2, 128, 16
+    q, k, v = _qkv(rep, 2, s, kv * rep, kv, dh)
+    do = np.random.default_rng(50 + rep).standard_normal(q.shape).astype(np.float32)
+    fn = lambda a, b, c: ref_attn.chunked_attention(  # noqa: E731
+        a, b, c, window=window, q_chunk=32, kv_chunk=64)
+    o_ref, vjp = jax.vjp(fn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    grads_ref = vjp(jnp.asarray(do))
+    tq, tk, tv = (x.requires_grad_() for x in _t(q, k, v))
+    o = attn.chunked_attention(tq, tk, tv, window=window, q_chunk=32, kv_chunk=64)
+    o.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(o_ref), **TOL)
+    for got, want in zip((tq.grad, tk.grad, tv.grad), grads_ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("window", [None, 20])
+def test_lse_matches_reference_flash_fwd(window):
+    b, s, h, kv, dh, cq = 2, 96, 4, 2, 16, 32
+    q, k, v = _qkv(3, b, s, h, kv, dh)
+    o_ref, lse_ref = ref_attn._flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                         window, cq, cq)
+    o, lse = ref.flash_fwd(*_t(q, k, v), window, cq, cq)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), **TOL)
+    # the reference keeps lse per q-chunk: (B, nq, KV, rep, Cq) -> (B, H, S)
+    want = np.asarray(lse_ref).transpose(0, 2, 3, 1, 4).reshape(b, h, s)
+    np.testing.assert_allclose(lse.numpy(), want, **TOL)
+
+
+def test_backward_passes_match_reference_flash_bwd():
+    b, s, h, kv, dh, cq = 1, 128, 6, 2, 32, 64
+    q, k, v = _qkv(4, b, s, h, kv, dh)
+    do = np.random.default_rng(9).standard_normal(q.shape).astype(np.float32)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    o_ref, lse_ref = ref_attn._flash_fwd(jq, jk, jv, 40, cq, cq)
+    want = ref_attn._flash_bwd((jq, jk, jv, o_ref, lse_ref), jnp.asarray(do), 40, cq, cq)
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    o, lse = ref.flash_fwd(tq, tk, tv, 40, cq, cq)
+    got = ref.flash_bwd(tq, tk, tv, o, lse, tdo, 40, cq, cq)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD_TOL)
+
+
+def test_chunk_size_does_not_change_the_plain_result():
+    q, k, v = _t(*_qkv(5, 1, 192, 4, 2, 16))
+    a = ops.flash_fwd(q, k, v, window=50, q_chunk=64, kv_chunk=32)
+    c = ops.flash_fwd(q, k, v, window=50, q_chunk=192, kv_chunk=192)
+    for x, y in zip(a, c):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), **TOL)
+
+
+def test_cpu_tensors_take_the_plain_version_and_never_launch():
+    q, k, v = _t(*_qkv(6, 1, 64, 2, 1, 16))
+    counters = (fa_kernel.fwd_launches, fa_kernel.dq_launches, fa_kernel.dkv_launches)
+    before = [c.count for c in counters]
+    x = q.clone().requires_grad_()
+    attn.chunked_attention(x, k, v, q_chunk=32, kv_chunk=32).sum().backward()
+    assert [c.count for c in counters] == before
+    with pytest.raises(ValueError, match="CUDA device"):
+        attn.chunked_attention(q, k, v, q_chunk=32, kv_chunk=32, use_kernel=True)
+    with pytest.raises(ValueError, match="multiple of the chunks"):
+        attn.chunked_attention(q, k, v, q_chunk=48, kv_chunk=32)

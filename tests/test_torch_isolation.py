@@ -32,7 +32,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25  # every module of the port was imported
+    assert int(out.stdout.strip()) >= 55  # every module of the port was imported
 
 
 def _entry_points():
@@ -40,6 +40,7 @@ def _entry_points():
     from repro_torch.core.pipeline import RGLPipeline
     from repro_torch.graph import generators
     from repro_torch.graph.ell import csr_to_ell
+    from repro_torch.launch import train
     from repro_torch.models.transformer import model as tm
     from repro_torch.models.transformer.config import TransformerConfig
     from repro_torch.serving.engine import ServeEngine
@@ -56,11 +57,12 @@ def _entry_points():
         "BruteIndex.build": lambda: BruteIndex.build(g.node_feat),
         "RGLPipeline": lambda: RGLPipeline(graph=ell, index=None, node_emb=ell.node_feat),
         "ServeEngine": lambda: ServeEngine(params, cfg, slots=1, cache_len=8),
+        "launch.train": lambda: train.main(["--arch", "starcoder2-3b", "--steps", "1"]),
     }
 
 
 @pytest.mark.parametrize("name", ["init_params", "init_cache", "csr_to_ell", "BruteIndex.build",
-                                  "RGLPipeline", "ServeEngine"])
+                                  "RGLPipeline", "ServeEngine", "launch.train"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour of a machine without CUDA")
