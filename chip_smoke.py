@@ -24,11 +24,26 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    retrieval wave (auto, compact alone, dense alone) are timed and profiled,
    and small fp32 runs check the card's outputs against the CPU's exactly
    (serving in auto and compact mode, every strategy in both backends);
-6. flash attention: the forward kernel and the two backward kernels against
+6. ell_spmm: the ``ell_aggregate`` op driven at the regime of the TPU
+   kernel it replaces (Q = 64, M = 1024, K = 32 and Q = 32, M = 256, K = 16,
+   D = 128; its launches counted), and the kernel against its plain version
+   there and on edge cases (D = 48 and 200, M = 1000, K = 1, sentinel and
+   out-of-range ids with the mask set, all-masked rows, bf16), bit for bit;
+7. indexes: the IVF index (64 clusters, nprobe 4) built twice on the card
+   from the 169,343-node graph's features (the builds must match bit for
+   bit); the ``ivf_scan`` kernel against both plain arms on that index's
+   candidates (Q = 4, k = 3 and Q = 64, k = 32) and on edge cases, bit for
+   bit; brute, IVF, sharded (S = 4) and sharded IVF (S = 4) searches timed
+   with their launch counts asserted, sharded brute ids equal to brute ids,
+   IVF recall against brute; the main path again with ``index="ivf"`` (the
+   same weights; ``ivf_scan`` once per wave); IVF and sharded IVF built on
+   the CPU searched on the card against the CPU, kmeans on both devices from
+   the same initial centroids, and a reduced IVF serve on both devices;
+8. flash attention: the forward kernel and the two backward kernels against
    their plain versions at the training shape (B = 1, S = 4096, 24/2 heads,
    dh = 128, window 4096, bf16), timed beside the plain version and
    ``scaled_dot_product_attention``;
-7. training: three steps of ``make_train_step`` + ``TrainLoop`` on the
+9. training: three steps of ``make_train_step`` + ``TrainLoop`` on the
    full-width, full-depth StarCoder2-3B config (bf16, vocab 49152, remat)
    at S = 4096, global batch 2 as 2 micro-batches, AdamW as the reference
    launcher sets it; every step profiled, the flash launch counts asserted
@@ -128,12 +143,12 @@ def bound(n_bytes: float, *work: tuple[float, float]) -> tuple[float, str]:
 # kernel-name fragments of the port's hand-written kernels in a trace
 KERNEL_GROUPS = (("frontier_expand", "ws_mark_kernel"), ("bfs_frontier", "frontier_hop_kernel"),
                  ("bfs_frontier", "pack_frontier_kernel"), ("topk_sim", "topk_sim_tile_kernel"),
-                 ("sorts", "ort"), ("sorts", "adix"))
+                 ("ivf_scan", "ivf_scan_tile_kernel"), ("sorts", "ort"), ("sorts", "adix"))
 
 
 def split_kernels(by_name: dict) -> dict:
-    """Device ms of a trace grouped as the port's three kernels, PyTorch's
-    sorts and everything else."""
+    """Device ms of a trace grouped as the port's retrieval kernels,
+    PyTorch's sorts and everything else."""
     out: dict = {}
     for name, ms in by_name.items():
         group = next((g for g, frag in KERNEL_GROUPS if frag in name), "other")
@@ -336,22 +351,32 @@ def strategy_phase(ell, seeds: torch.Tensor) -> None:
 
 # -------------------------------------------------------------- main path ----
 def serve_args(**kw) -> argparse.Namespace:
-    base = dict(requests=12, slots=4, max_new=12, nodes=N_NODES, index="brute",
+    base = dict(requests=12, slots=4, max_new=12, nodes=N_NODES, index="brute", shards=None,
                 retrieval="auto", cache_policy="lru", device="cuda")
     base.update(kw)
     return argparse.Namespace(**base)
 
 
-def main_path(cfg) -> dict:
-    """Serve 8 distinct requests plus 4 repeats through the port's entry
-    points with ``cfg`` on the card; every kernel launch is counted."""
-    from repro_torch.core import graph_retrieval as gr
+def serve_counters() -> dict:
+    """The launch counters of every kernel a serve can reach."""
     from repro_torch.kernels.bfs_frontier import kernel as bfs_kernel
     from repro_torch.kernels.frontier_expand import kernel as fe_kernel
+    from repro_torch.kernels.ivf_scan import kernel as ivf_kernel
     from repro_torch.kernels.topk_sim import kernel as topk_kernel
+
+    return {"topk_sim": topk_kernel.launches, "ivf_scan": ivf_kernel.launches,
+            "bfs_frontier": bfs_kernel.launches, "frontier_expand": fe_kernel.launches}
+
+
+def main_path(cfg, index: str = "brute", params=None):
+    """Serve 8 distinct requests plus 4 repeats through the port's entry
+    points with ``cfg`` and the ``index`` kind on the card; every kernel
+    launch is counted.  ``params`` reuses the weights of an earlier serve.
+    Returns (summary, params)."""
+    from repro_torch.core import graph_retrieval as gr
     from repro_torch.launch.serve import _serve_rag
 
-    args = serve_args()
+    args = serve_args(index=index)
     distinct = np.random.default_rng(0).choice(args.nodes, 8, replace=False)
     q_ids = np.concatenate([distinct, distinct[:4]])
     # observe (not change) the compact backend: each wave's overflowing rows
@@ -364,14 +389,13 @@ def main_path(cfg) -> dict:
         return sub
 
     gr.COMPACT_STRATEGIES["bfs"] = recording
+    counters = serve_counters()
     try:
         torch.cuda.reset_peak_memory_stats()
-        for counter in (topk_kernel.launches, bfs_kernel.launches, fe_kernel.launches):
+        for counter in counters.values():
             counter.reset()
-        out = _serve_rag(cfg, args, q_ids=q_ids)
-        launches = {"topk_sim": topk_kernel.launches.count,
-                    "bfs_frontier": bfs_kernel.launches.count,
-                    "frontier_expand": fe_kernel.launches.count}
+        out = _serve_rag(cfg, args, q_ids=q_ids, params=params)
+        launches = {name: c.count for name, c in counters.items()}
     finally:
         gr.COMPACT_STRATEGIES["bfs"] = compact_bfs
     done, s = out["done"], out["stats"]
@@ -385,19 +409,21 @@ def main_path(cfg) -> dict:
     pipe = out["engine"].pipeline
     hops = pipe.config.max_hops
     reruns = sum(1 for r in overflow_rows if r > 0)  # waves that re-ran dense
-    print(f"main path: {waves} retrieval waves, overflowing rows per wave {overflow_rows}",
-          flush=True)
-    assert launches["topk_sim"] == waves > 0, (launches, waves)
-    assert len(overflow_rows) == waves, (overflow_rows, waves)
+    print(f"main path ({index} index): {waves} retrieval waves, overflowing rows per wave "
+          f"{overflow_rows}, launches {launches}", flush=True)
+    assert waves > 0 and len(overflow_rows) == waves, (overflow_rows, waves)
+    assert launches["topk_sim"] == (waves if index == "brute" else 0), (launches, waves)
+    assert launches["ivf_scan"] == (waves if index == "ivf" else 0), (launches, waves)
     assert launches["frontier_expand"] == hops * waves, (launches, waves)
     assert launches["bfs_frontier"] == hops * reruns, (launches, overflow_rows)
-    decode_profile = profile_decode(out["engine"].engine)
-    # one warm retrieval wave (4 fresh queries) on its own, through auto,
-    # compact alone and dense alone: wall time and device time by kernel
+    decode_profile = profile_decode(out["engine"].engine) if index == "brute" else None
+    # one warm retrieval wave (4 fresh queries) on its own, through auto (and
+    # for the brute index compact alone and dense alone): wall time and
+    # device time by kernel
     fresh = torch.from_numpy((q_ids[:4] + 1) % args.nodes).to(pipe.device)
     qw = pipe.node_emb[fresh].cpu().numpy()
     retrieval_wave = {}
-    for mode in ("auto", "compact", "dense"):
+    for mode in (("auto", "compact", "dense") if index == "brute" else ("auto",)):
         p = dataclasses.replace(pipe, config=dataclasses.replace(pipe.config, retrieval_mode=mode))
         wave = lambda: p.retrieve_many(qw, batch_size=args.slots).nodes.cpu()  # noqa: E731
         ov = p.retrieve_many(qw, batch_size=args.slots).overflow
@@ -407,21 +433,25 @@ def main_path(cfg) -> dict:
             "overflow_rows": None if ov is None else int(ov.sum()),
             "device_ms_split": split_kernels(wave_kernels),
             "top_kernels_ms": dict(sorted(wave_kernels.items(), key=lambda kv: -kv[1])[:6])}
-    return {"launches": launches, "waves": waves, "overflow_rows_per_wave": overflow_rows,
-            "dense_reruns": reruns, "tok_per_s": out["tok_per_s"],
-            "tokens": out["tokens"], "serve_s": out["serve_s"], "setup_s": out["setup_s"],
-            "retrieval_s": out["retrieval_s"], "decode_ms_per_step": out["decode_ms_per_step"],
-            "decode_steps": s["decode_steps"], "prefill_batches": s["prefill_batches"],
-            "admit_s": s["admit_seconds"], "cache_hits": s["hits"], "cache_misses": s["misses"],
-            "n_layers": cfg.n_layers, "cache_len": out["cache_len"],
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "decode_profile": decode_profile, "retrieval_wave": retrieval_wave}
+    summary = {"index": index, "launches": launches, "waves": waves,
+               "overflow_rows_per_wave": overflow_rows, "dense_reruns": reruns,
+               "tok_per_s": out["tok_per_s"], "tokens": out["tokens"], "serve_s": out["serve_s"],
+               "setup_s": out["setup_s"], "retrieval_s": out["retrieval_s"],
+               "decode_ms_per_step": out["decode_ms_per_step"],
+               "decode_steps": s["decode_steps"], "prefill_batches": s["prefill_batches"],
+               "admit_s": s["admit_seconds"], "cache_hits": s["hits"],
+               "cache_misses": s["misses"], "n_layers": cfg.n_layers,
+               "cache_len": out["cache_len"],
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "decode_profile": decode_profile, "retrieval_wave": retrieval_wave}
+    return summary, out["params"]
 
 
 def cross_device_check(reduced_cfg) -> int:
     """The whole main path at a small size on the card (kernels) and on the
     CPU (plain versions), with the same weights, in auto and in compact
-    mode: retrieved nodes, prompts and tokens must agree.  Then every
+    mode with the brute index and in auto mode with the IVF index (each
+    device builds its own): retrieved nodes, prompts and tokens must agree.  Then every
     strategy through both backends on the same graph: seeds, nodes, mask,
     dist and overflow flags must agree.  Returns the number of overflowing
     rows the compact runs met."""
@@ -431,20 +461,21 @@ def cross_device_check(reduced_cfg) -> int:
     from repro_torch.graph.ell import csr_to_ell
     from repro_torch.launch.serve import _serve_rag
 
-    for retrieval in ("auto", "compact"):
-        card = _serve_rag(reduced_cfg, serve_args(nodes=3000, requests=8, retrieval=retrieval))
+    for retrieval, index in (("auto", "brute"), ("compact", "brute"), ("auto", "ivf")):
+        kw = dict(nodes=3000, requests=8, retrieval=retrieval, index=index)
+        card = _serve_rag(reduced_cfg, serve_args(**kw))
         params = card["params"]
         host = {"embed": params["embed"].cpu(), "ln_f": params["ln_f"].cpu(),
                 "head": params["head"].cpu(),
                 "layers": {k: v.cpu() for k, v in params["layers"].items()}}
-        cpu = _serve_rag(reduced_cfg, serve_args(nodes=3000, requests=8, device="cpu",
-                                                 retrieval=retrieval), params=host)
+        cpu = _serve_rag(reduced_cfg, serve_args(device="cpu", **kw), params=host)
         runs = [{r.uid: r for r in out["done"]} for out in (card, cpu)]
         for uid, a in runs[0].items():
             b = runs[1][uid]
-            assert np.array_equal(a.retrieved_nodes, b.retrieved_nodes), (retrieval, uid)
-            assert np.array_equal(a.prompt_ids, b.prompt_ids), (retrieval, uid)
-            assert a.out_tokens == b.out_tokens, (retrieval, uid, a.out_tokens, b.out_tokens)
+            assert np.array_equal(a.retrieved_nodes, b.retrieved_nodes), (retrieval, index, uid)
+            assert np.array_equal(a.prompt_ids, b.prompt_ids), (retrieval, index, uid)
+            assert a.out_tokens == b.out_tokens, (retrieval, index, uid, a.out_tokens,
+                                                  b.out_tokens)
     g = generators.citation_graph(3000, avg_deg=8, seed=0)
     q = g.node_feat[np.random.default_rng(5).choice(3000, 4, replace=False)]
     pipes = []
@@ -504,6 +535,279 @@ def profile_decode(engine, steps: int = 5) -> dict:
             "device_idle_share": 1 - busy / wall, "kernels_per_step": n_kernels / steps,
             "top_kernels_ms_per_step": dict(top)}
 
+
+
+# ------------------------------------------------------------ ell_spmm ----
+ELL_SHAPES = ((64, 1024, 32, 128), (32, 256, 16, 128))  # (Q, M, K, D)
+ELL_EDGES = ((3, 100, 12, 48), (2, 50, 4, 200), (4, 1000, 40, 64), (5, 17, 1, 33), (3, 1, 3, 8))
+
+
+def ell_inputs(rng, q, m, k, d, dtype=torch.float32):
+    """Features, ids in [0, M] (M the sentinel) and a 70% mask, with ids of
+    M and past M under a set mask, all-masked rows and an all-masked query."""
+    feat = torch.from_numpy(rng.standard_normal((q, m, d)).astype(np.float32)).to(DEV, dtype)
+    nbr = torch.from_numpy(rng.integers(0, m + 1, (q, m, k)).astype(np.int32)).to(DEV)
+    msk = torch.from_numpy(rng.random((q, m, k)) < 0.7).to(DEV)
+    nbr[:, ::7, 0] = m
+    nbr[:, ::5, -1] = m + 3
+    msk[:, ::7, 0] = True
+    msk[:, ::11] = False
+    msk[-1, :, :] = False
+    return feat, nbr, msk
+
+
+def ell_path(rng) -> int:
+    """The ``ell_aggregate`` op driven at the regime of the TPU kernel it
+    replaces (many queries over subgraphs of M <= 1k nodes, K = 8..64
+    slots); returns the launches counted in that run."""
+    from repro_torch.kernels.ell_spmm import kernel, ops
+
+    inputs = [ell_inputs(rng, *shape) for shape in ELL_SHAPES]
+    kernel.launches.reset()
+    outs = [ops.ell_aggregate(*x) for x in inputs]
+    torch.cuda.synchronize()
+    launched = kernel.launches.count
+    for out, (feat, _, _) in zip(outs, inputs):
+        assert out.shape == feat.shape and bool(torch.isfinite(out).all())
+    assert launched == len(ELL_SHAPES), launched
+    return launched
+
+
+def check_ell_spmm(rng) -> dict:
+    """The kernel against its plain version, bit for bit (both add the same
+    fp32 values in slot order and round once), at the regime shapes and on
+    edge cases; times of the kernel, the plain version and CSR
+    ``torch.sparse.mm`` at both regime shapes."""
+    from repro_torch.kernels.ell_spmm import ops
+
+    cases = [(s, torch.float32) for s in ELL_SHAPES + ELL_EDGES]
+    cases += [((8, 256, 16, 128), torch.bfloat16), ((2, 50, 4, 200), torch.bfloat16)]
+    for shape, dtype in cases:
+        feat, nbr, msk = ell_inputs(rng, *shape, dtype=dtype)
+        got = ops.ell_aggregate(feat, nbr, msk, use_kernel=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ops.ell_aggregate(feat, nbr, msk, use_kernel=False)), (shape, dtype)
+        assert not got[-1].any() and not got[:, ::11].any(), (shape, dtype)
+
+    timed = []
+    for q, m, k, d in ELL_SHAPES:
+        feat, nbr, msk = ell_inputs(rng, q, m, k, d)
+        run = lambda: ops.ell_aggregate(feat, nbr, msk, use_kernel=True)  # noqa: E731
+        ms, kernels = device_ms(run)
+        plain_ms, _ = device_ms(lambda: ops.ell_aggregate(feat, nbr, msk, use_kernel=False),
+                                calls=3)
+        # library yardstick: one block-diagonal (Q*M) x (Q*(M+1)) CSR matrix
+        # of the live slots times the features with their zero rows (built
+        # untimed)
+        live = msk & (nbr < m)
+        qi, ri, _ = live.nonzero(as_tuple=True)
+        adj = torch.sparse_coo_tensor(
+            torch.stack([qi * m + ri, qi * (m + 1) + nbr[live].long()]),
+            torch.ones(len(qi), device=DEV), (q * m, q * (m + 1))).coalesce().to_sparse_csr()
+        dense = torch.cat([feat, feat.new_zeros((q, 1, d))], 1).reshape(q * (m + 1), d)
+        lib_err = (torch.sparse.mm(adj, dense).reshape(q, m, d) - run()).abs().max().item()
+        assert lib_err <= 1e-4, lib_err  # the same sums in cuSPARSE's order
+        library_ms, _ = device_ms(lambda: torch.sparse.mm(adj, dense))
+        n_live = int(live.sum())
+        # each input read once, the output written once; the adds at the fp32 rate
+        b_ms, b_by = bound(2 * 4 * q * m * d + 5 * q * m * k, (n_live * d, FP32_FLOPS))
+        timed.append({"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": library_ms, "library_max_abs_diff": lib_err,
+                      "call_ms": time_ms(run), "device_kernels_ms": kernels, "live_slots": n_live,
+                      "gather_bytes_ms": 1e3 * 4 * n_live * d / HBM_BYTES_PER_S,
+                      "shape": f"Q={q} M={m} K={k} D={d} fp32"})
+        del feat, nbr, msk, adj, dense
+    return {"name": "ell_aggregate", "route": "cuda", "source": "src/repro_torch/csrc/ell_spmm.cu",
+            "replaces": "src/repro/kernels/ell_spmm/kernel.py:40", "max_abs_err": 0.0,
+            "library": "CSR torch.sparse.mm", **timed[0], "second_shape": timed[1]}
+
+
+# --------------------------------------------------------------- indexes ----
+def index_queries(emb: torch.Tensor, q: int, rng) -> torch.Tensor:
+    """``q`` node features plus a little noise (the index normalizes)."""
+    rows = emb[torch.from_numpy(rng.choice(emb.shape[0], q)).to(emb.device)]
+    noise = torch.from_numpy(rng.standard_normal(rows.shape).astype(np.float32)).to(emb.device)
+    return rows + 0.05 * rows.norm(dim=1, keepdim=True) * noise / np.sqrt(rows.shape[1])
+
+
+def ivf_candidates(ivf, q: torch.Tensor):
+    """The normalized queries and the (cand, cmask) that ``IVFIndex.search``
+    hands the scan."""
+    from repro_torch.core.indexing import ivf_candidates, l2_normalize
+
+    qn = l2_normalize(q)
+    return (qn, *ivf_candidates(ivf.centroids, ivf.lists, ivf.list_mask, qn, ivf.nprobe))
+
+
+def check_ivf_scan(ivf, emb_raw: torch.Tensor, rng) -> dict:
+    """The kernel (through the op) against both plain arms, bit for bit (the
+    plain versions sum every dot product in the kernel's order): on the
+    Arxiv-scale IVF index's candidates at Q = 4, k = 3 (a serving wave) and
+    Q = 64, k = 32, and on edge cases.  Times at both shapes."""
+    from repro_torch.kernels.ivf_scan import ops
+
+    def compare(q, e, cand, cmask, k):
+        s_k, i_k = ops.ivf_candidate_scan(q, e, cand, cmask, k, use_kernel=True)
+        torch.cuda.synchronize()
+        for tiled in (False, True):
+            s_p, i_p = ops.ivf_candidate_scan(q, e, cand, cmask, k, tiled=tiled, use_kernel=False)
+            assert torch.equal(s_k, s_p) and torch.equal(i_k, i_p), (tuple(cand.shape), k, tiled)
+        return s_k, i_k
+
+    # edge cases: a row with no live slot (real ids at masked slots), W < k,
+    # W not a multiple of c_blk or of the kernel's tile, duplicate rows and
+    # duplicate ids (exact ties), k past one tile
+    n, d = 5000, 128
+    e = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(DEV)
+    e[2500:3000] = e[:500].clone()
+    for q, w, k in ((3, 1500, 7), (2, 5, 9), (4, 3000, 300), (1, 1, 1), (5, 2049, 32)):
+        qv = torch.from_numpy(rng.standard_normal((q, d)).astype(np.float32)).to(DEV)
+        cand = torch.from_numpy(rng.integers(0, n + 1, (q, w)).astype(np.int32)).to(DEV)
+        cand[:, : w // 3] = cand[:, w // 3: 2 * (w // 3)]
+        cmask = torch.from_numpy(rng.random((q, w)) < 0.5).to(DEV) & (cand < n)
+        cmask[-1] = False
+        _, i_k = compare(qv, e, cand, cmask, k)
+        assert torch.equal(i_k[-1, :min(k, w)], cand[-1, :min(k, w)])
+
+    emb = ivf.emb
+    shapes = {}
+    for q, k in ((4, 3), (64, 32)):
+        qn, cand, cmask = ivf_candidates(ivf, index_queries(emb_raw, q, rng))
+        compare(qn, emb, cand, cmask, k)
+        run = lambda: ops.ivf_candidate_scan(qn, emb, cand, cmask, k, use_kernel=True)  # noqa: E731
+        ms, kernels = device_ms(run)
+        plain_ms, _ = device_ms(
+            lambda: ops.ivf_candidate_scan(qn, emb, cand, cmask, k, use_kernel=False), calls=3)
+
+        def library():
+            ce = emb[cand.clamp(max=emb.shape[0] - 1)]
+            sc = torch.bmm(ce, qn[..., None]).squeeze(-1).masked_fill(~cmask, float("-inf"))
+            return torch.topk(sc, k)
+
+        library_ms, _ = device_ms(library)
+        w = cand.shape[1]
+        live = int(cmask.sum())
+        # every slot's id and mask, every live row, the queries; the output
+        b_ms, b_by = bound(5 * q * w + 4 * live * d + 4 * q * d + 8 * q * k,
+                           (2 * live * d, FP32_FLOPS))
+        shapes[(q, k)] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "call_ms": time_ms(run),
+            "tile_kernel_ms": sum(v for n_, v in kernels.items() if "ivf_scan_tile" in n_),
+            "device_kernels_ms": kernels, "live_rows": live,
+            "all_slots_bound_ms": 1e3 * q * w * (4 * d + 5) / HBM_BYTES_PER_S,
+            "shape": f"Q={q} W={w} D={d} k={k}"}
+    serve, batch = shapes[(4, 3)], shapes[(64, 32)]
+    return {"name": "ivf_scan", "route": "cuda", "source": "src/repro_torch/csrc/ivf_scan.cu",
+            "replaces": "src/repro/kernels/ivf_scan/kernel.py:38", "max_abs_err": 0.0,
+            "library": "torch.topk(torch.bmm(emb[cand], q)) with the mask",
+            **serve, "batch_shape": batch}
+
+
+def index_phase(feat: torch.Tensor, rng) -> tuple[dict, dict]:
+    """The four index kinds at Arxiv scale (N = 169,343, D = 128): IVF built
+    twice (bit for bit), the ``ivf_scan`` kernel check, each kind's search of
+    a Q = 4, k = 3 wave timed with its launch counts asserted, sharded brute
+    against brute, IVF recall against brute over 64 queries."""
+    from repro_torch.core import indexing as ix
+    from repro_torch.core.sharding import ShardedIndex
+
+    counters = serve_counters()
+    builds = {}
+
+    def timed_build(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        idx = fn()
+        torch.cuda.synchronize()
+        builds[name] = time.perf_counter() - t
+        return idx
+
+    ivf = timed_build("ivf", lambda: ix.IVFIndex.build(feat, n_clusters=64, nprobe=4, device=DEV))
+    again = ix.IVFIndex.build(feat, n_clusters=64, nprobe=4, device=DEV)
+    for f in ("emb", "centroids", "lists", "list_mask"):
+        assert torch.equal(getattr(ivf, f), getattr(again, f)), f"IVF builds differ in {f}"
+    del again
+    sizes = ivf.list_mask.sum(1)
+    print(f"IVF index: 64 lists of {int(sizes.min())}..{int(sizes.max())} members, padded to "
+          f"{ivf.lists.shape[1]}; two builds bit for bit equal ({builds['ivf']:.2f}s)", flush=True)
+    record = check_ivf_scan(ivf, feat, rng)
+    print("kernel check: ivf_scan matches both plain arms bit for bit", flush=True)
+
+    s4 = 4
+    indexes = {"brute": timed_build("brute", lambda: ix.BruteIndex.build(feat, device=DEV)),
+               "ivf": ivf,
+               "sharded": timed_build("sharded", lambda: ShardedIndex.build(
+                   feat, n_shards=s4, device=DEV)),
+               "sharded_ivf": timed_build("sharded_ivf", lambda: ShardedIndex.build(
+                   feat, n_shards=s4, inner="ivf", device=DEV))}
+    want = {"brute": {"topk_sim": 1, "ivf_scan": 0}, "ivf": {"topk_sim": 0, "ivf_scan": 1},
+            "sharded": {"topk_sim": s4, "ivf_scan": 0},
+            "sharded_ivf": {"topk_sim": 0, "ivf_scan": s4}}
+    q4 = index_queries(feat, 4, rng)
+    searches, results = {}, {}
+    for name, idx in indexes.items():
+        for c in counters.values():
+            c.reset()
+        results[name] = idx.search(q4, 3)
+        torch.cuda.synchronize()
+        got = {n: counters[n].count for n in ("topk_sim", "ivf_scan")}
+        assert got == want[name], (name, got)
+        run = lambda: idx.search(q4, 3)[1].cpu()  # noqa: E731
+        dev_ms, kernels = device_ms(run)
+        wall = time_ms(run)
+        searches[name] = {"wall_ms": wall, "device_ms": dev_ms,
+                          "device_idle_share": 1 - dev_ms / wall, "launches": got,
+                          "device_ms_split": split_kernels(kernels)}
+    (bs, bi), (ss, si) = results["brute"], results["sharded"]
+    assert torch.equal(bi, si), "sharded brute ids differ from brute ids"
+    ulps = (bs.view(torch.int32) - ss.view(torch.int32)).abs().max().item()
+    assert ulps <= 4, f"sharded brute scores {ulps} ulp from brute"
+    q64 = index_queries(feat, 64, rng)
+    _, b32 = indexes["brute"].search(q64, 32)
+    recall = {}
+    for name in ("ivf", "sharded_ivf"):
+        _, i32 = indexes[name].search(q64, 32)
+        recall[name] = {f"recall@{k}": float(np.mean([
+            len(set(i32[r, :k].tolist()) & set(b32[r, :k].tolist())) / k for r in range(64)]))
+            for k in (3, 32)}
+    out = {"build_s": builds, "search_q4_k3": searches, "sharded_brute_max_ulp": ulps,
+           "recall_vs_brute_64_queries": recall, "ivf_lists": ivf.lists.shape[1]}
+    del indexes, ivf, results
+    return out, record
+
+
+def cross_device_index_check(feat_cpu: np.ndarray, rng) -> dict:
+    """IVF and sharded IVF built on the CPU and moved to the card: the
+    card's search (the kernels) equals the CPU's (the plain versions), ids
+    exactly, scores within 1e-6 (the probe's q . centroids is a cuBLAS
+    product on the card).  Then Lloyd's iterations on both devices from the
+    same normalized rows and initial centroids: the largest centroid gap and
+    the number of assignments that differ (a reading)."""
+    from repro_torch.core import indexing as ix
+    from repro_torch.core.sharding import ShardedIndex
+
+    q = index_queries(torch.from_numpy(feat_cpu), 64, rng)
+    out = {}
+    for name, build in (("ivf", lambda: ix.IVFIndex.build(feat_cpu, device="cpu")),
+                        ("sharded_ivf", lambda: ShardedIndex.build(
+                            feat_cpu, n_shards=4, inner="ivf", device="cpu"))):
+        cpu = build()
+        card = type(cpu)(**{f: (v.to(DEV) if torch.is_tensor(v) else v)
+                            for f, v in vars(cpu).items()})
+        s_h, i_h = cpu.search(q, 32)
+        s_c, i_c = card.search(q.to(DEV), 32)
+        assert torch.equal(i_c.cpu(), i_h), f"{name}: card ids differ from the CPU's"
+        gap = (s_c.cpu() - s_h).abs().max().item()
+        assert gap <= 1e-6, (name, gap)
+        out[name] = {"max_score_gap": gap}
+    x = ix.l2_normalize(torch.from_numpy(feat_cpu))
+    init = x[torch.from_numpy(np.random.default_rng(0).choice(x.shape[0], 64, replace=False))]
+    cent_h, a_h = ix._lloyd(x, init, 10)
+    cent_c, a_c = ix._lloyd(x.to(DEV), init.to(DEV), 10)
+    out["kmeans"] = {"max_centroid_gap": (cent_c.cpu() - cent_h).abs().max().item(),
+                     "assignments_differing": int((a_c.cpu() != a_h).sum())}
+    return out
 
 
 # ------------------------------------------------------- flash attention ----
@@ -922,18 +1226,42 @@ def main() -> int:
     print(f"strategies: compact and dense agree on every row that did not overflow "
           f"({time.perf_counter() - t0:.1f}s, peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB)",
           flush=True)
+    ell_launches = ell_path(rng)
+    ell_record = check_ell_spmm(rng)
+    print(f"ell_spmm path: {ell_launches} launches at {ELL_SHAPES} (Q, M, K, D); kernel check: "
+          f"ell_aggregate matches its plain version bit for bit", flush=True)
+    t0 = time.perf_counter()
+    indexes, ivf_record = index_phase(ell.node_feat, rng)
+    print(json.dumps({"indexes": "169343 x 128, Q = 4, k = 3", "card": card, **indexes,
+                      "phase_s": time.perf_counter() - t0}), flush=True)
+    feat_cpu = g.node_feat
     del g, ell, emb
     torch.cuda.empty_cache()
 
-    mp = main_path(spec.model_cfg)
+    mp, params = main_path(spec.model_cfg)
     print(json.dumps({"main_path": "starcoder2-3b bf16, 169343-node graph, retrieval auto",
                       "card": card, **mp}), flush=True)
+    mp_ivf = main_path(spec.model_cfg, index="ivf", params=params)[0]
+    del params
+    print(json.dumps({"main_path": "the same with the IVF index (64 lists, nprobe 4)",
+                      "card": card, **mp_ivf}), flush=True)
+    print(json.dumps({"ivf_vs_brute_serve": {
+        "tok_per_s": [mp["tok_per_s"], mp_ivf["tok_per_s"]],
+        "warm_wave_wall_ms": [mp["retrieval_wave"]["auto"]["wall_ms"],
+                              mp_ivf["retrieval_wave"]["auto"]["wall_ms"]],
+        "warm_wave_device_ms": [mp["retrieval_wave"]["auto"]["device_ms"],
+                                mp_ivf["retrieval_wave"]["auto"]["device_ms"]]}}), flush=True)
+    torch.cuda.empty_cache()
     overflowed = cross_device_check(spec.reduced_cfg)
     print(f"cross-device check: card and CPU agree on nodes, prompts and tokens (auto, "
-          f"compact) and on every strategy in both backends ({overflowed} overflowing rows)",
+          f"compact, auto with IVF) and on every strategy in both backends ({overflowed} "
+          f"overflowing rows)", flush=True)
+    print(json.dumps({"cross_device_indexes": cross_device_index_check(feat_cpu, rng)}),
           flush=True)
     for rec in records:
         rec["launches"] = mp["launches"][rec["name"]]
+    ell_record["launches"] = ell_launches
+    ivf_record["launches"] = mp_ivf["launches"]["ivf_scan"]
     torch.cuda.empty_cache()
 
     cfg = spec.model_cfg
@@ -953,7 +1281,7 @@ def main() -> int:
           flush=True)
     for rec in flash_records:
         rec["launches"] = train["launches"][rec["name"]]
-    records += flash_records
+    records += flash_records + [ell_record, ivf_record]
 
     for rec in records:
         print(json.dumps({"kernel": rec["name"], "card": card, **rec}))

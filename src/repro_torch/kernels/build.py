@@ -21,7 +21,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("topk_sim.cu", "bfs_frontier.cu", "frontier_expand.cu", "flash_attn.cu")
+SOURCES = ("topk_sim.cu", "bfs_frontier.cu", "frontier_expand.cu", "flash_attn.cu", "ell_spmm.cu",
+           "ivf_scan.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -1,0 +1,1 @@
+"""ivf_scan kernel package: kernel.py (CUDA launch), ops.py (public op), ref.py (plain version)."""

@@ -17,6 +17,14 @@ def stable_topk(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def lex_order(s: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """Permutation along the last axis that orders by (s desc, key asc) --
+    the reference's 2-key ``lax.sort`` on (-s, key)."""
+    by_key = torch.argsort(key, dim=-1, stable=True)
+    by_s = torch.argsort(torch.gather(s, -1, by_key), dim=-1, descending=True, stable=True)
+    return torch.gather(by_key, -1, by_s)
+
+
 def topk_similarity(q: torch.Tensor, emb: torch.Tensor, k: int):
     """q (Q, D), emb (N, D) -> (scores (Q, k) f32, ids (Q, k) int32), exact
     fp32 dot-product retrieval, ties to the lower id."""

@@ -1,11 +1,13 @@
-"""Serving launcher (``--rag``): a synthetic citation graph + brute vector
-index feed raw (query embedding, query text) requests through
-``RAGServeEngine`` (batched retrieval admission + retrieval cache + decode),
-on the card by default.
+"""Serving launcher (``--rag``): a synthetic citation graph + a vector index
+(brute, IVF, sharded or sharded IVF) feed raw (query embedding, query text)
+requests through ``RAGServeEngine`` (batched retrieval admission + retrieval
+cache + decode), on the card by default.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b --rag
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b --rag \
         --nodes 169343
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b --rag \
+        --index sharded_ivf --shards 4 --device cpu
 
 The CLI serves the arch's reduced config, as the reference launcher does;
 :func:`_serve_rag` takes any config (``chip_smoke.py`` passes the full one).
@@ -48,7 +50,8 @@ def _serve_rag(cfg, args, q_ids: Optional[np.ndarray] = None,
     cfg = dataclasses.replace(cfg, vocab=vocab.size)
     tok = GraphTokenizer(vocab, max_len=96, node_budget=8)
     pcfg = PipelineConfig(strategy="bfs", k_seeds=3, max_nodes=16, filter_budget=6,
-                          index_kind=args.index, retrieval_mode=args.retrieval)
+                          index_kind=args.index, index_shards=args.shards,
+                          retrieval_mode=args.retrieval)
     index = index_from_config(emb, pcfg, device=dev)
     pipe = RGLPipeline(graph=ell, index=index, node_emb=emb, tokenizer=tok,
                        node_text=g.node_text, config=pcfg, device=dev)
@@ -98,7 +101,9 @@ def main(argv=None):
     ap.add_argument("--max_new", type=int, default=12)
     ap.add_argument("--nodes", type=int, default=1000, help="synthetic graph size")
     ap.add_argument("--index", default="brute", choices=["brute", "ivf", "sharded", "sharded_ivf"],
-                    help="stage-1 vector index backend (only brute is ported)")
+                    help="stage-1 vector index backend")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="shard count for the sharded index kinds (default: one per device)")
     ap.add_argument("--retrieval", default="auto", choices=["dense", "compact", "auto"],
                     help="stage-3 subgraph construction backend")
     ap.add_argument("--cache-policy", default="lru", choices=["lru", "lfu", "ttl"])

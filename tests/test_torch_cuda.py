@@ -1,8 +1,10 @@
 """Hand-written kernels against their plain versions on the card, at edge
 shapes the main path does not reach (query groups, odd widths, tiny N,
 ragged candidate rows, worksets of one id or of more than 48 KB; flash
-attention over head dims, GQA ratios, windows, both dtypes and ragged S).
-Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere.
+attention over head dims, GQA ratios, windows, both dtypes and ragged S;
+ELL aggregation over odd widths and sentinel ids; the IVF scan over ragged,
+narrow and tied candidate sets), and the index kinds and an IVF serve on the
+card against the CPU.  Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere.
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -12,7 +14,8 @@ Flash attention: fp32 within ``atol=rtol=1e-4`` (the same products summed
 in another order over up to S keys); bf16 within one bf16 ulp
 (``rtol=2**-7``) plus ``2**-7 * max|ref|`` absolute, since p is rounded to
 bf16 before P·V and a last-bit difference in an fp32 score can round it the
-other way, and every output is rounded to bf16 once.
+other way, and every output is rounded to bf16 once.  ``ell_spmm`` and
+``ivf_scan`` bit for bit: their plain versions add in the kernels' order.
 """
 import numpy as np
 import pytest
@@ -352,3 +355,147 @@ def test_reduced_train_step_kernels_match_plain(dev):
         assert step_p.abs().max().item() > lr_1 / 2  # the step moved the leaf
         gap = ((step_k - step_p).norm() / step_p.norm()).item()
         assert gap <= 1e-3, gap
+
+
+# ------------------------------------------------------------ ell_spmm ----
+ELL_CASES = [  # q, m, k, d, dtype: the chip_smoke regimes, odd widths, M = 1, K = 1
+    (64, 1024, 32, 128, torch.float32), (32, 256, 16, 128, torch.float32),
+    (3, 100, 12, 48, torch.float32), (2, 50, 4, 200, torch.float32),
+    (4, 1000, 40, 64, torch.float32), (5, 17, 1, 33, torch.float32), (3, 1, 3, 8, torch.float32),
+    (8, 256, 16, 128, torch.bfloat16), (2, 50, 4, 200, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("q,m,k,d,dtype", ELL_CASES)
+def test_ell_spmm_kernel_matches_plain(dev, q, m, k, d, dtype):
+    """Bit for bit: kernel and plain version add the same fp32 values in
+    slot order and round once.  Ids of M (mask set) and past M, all-masked
+    rows and an all-masked query count as the zero sentinel."""
+    from repro_torch.kernels.ell_spmm import kernel, ops
+
+    rng = np.random.default_rng(q * m + k)
+    feat = torch.from_numpy(rng.standard_normal((q, m, d)).astype(np.float32)).to(dev, dtype)
+    nbr = torch.from_numpy(rng.integers(0, m + 1, (q, m, k)).astype(np.int32)).to(dev)
+    msk = torch.from_numpy(rng.random((q, m, k)) < 0.7).to(dev)
+    nbr[:, ::7, 0] = m
+    nbr[:, ::5, -1] = m + 3
+    msk[:, ::3, :] = False
+    msk[-1] = False
+    before = kernel.launches.count
+    got = ops.ell_aggregate(feat, nbr, msk)
+    torch.cuda.synchronize()
+    assert kernel.launches.count == before + 1 and got.dtype == dtype
+    assert torch.equal(got, ops.ell_aggregate(feat, nbr, msk, use_kernel=False))
+    assert not got[-1].any() and not got[:, ::3].any()
+
+
+# ------------------------------------------------------------ ivf_scan ----
+IVF_CASES = [  # q, n, d, w, k, integer data: ragged W, W < tile, k > tile, narrow W < k
+    (4, 5000, 128, 18_112, 3, False), (64, 5000, 128, 18_112, 32, False),
+    (6, 400, 16, 899, 23, True), (3, 200, 8, 300, 6, True), (2, 300, 40, 700, 300, False),
+    (5, 100, 70, 5, 9, False), (1, 1, 4, 1, 1, False)]
+
+
+@pytest.mark.parametrize("q,n,d,w,k,integer", IVF_CASES)
+def test_ivf_scan_kernel_matches_plain(dev, q, n, d, w, k, integer):
+    """Scores bit for bit (the plain version sums every dot product in the
+    kernel's order) and ids exact, against both plain arms: duplicate ids
+    and duplicate rows tie, a row with no live slot returns the raw ids of
+    its first slots (real ids at masked slots), sentinels never score."""
+    from repro_torch.kernels.ivf_scan import kernel, ops
+
+    rng = np.random.default_rng(q * w + k)
+    draw = (lambda s: rng.integers(-3, 4, s)) if integer else rng.standard_normal
+    emb = torch.from_numpy(draw((n, d)).astype(np.float32)).to(dev)
+    emb[n // 2:n // 2 + n // 8] = emb[: n // 8].clone()  # duplicate rows
+    qv = torch.from_numpy(draw((q, d)).astype(np.float32)).to(dev)
+    cand = torch.from_numpy(rng.integers(0, n + 1, (q, w)).astype(np.int32)).to(dev)
+    cand[:, : w // 3] = cand[:, w // 3: 2 * (w // 3)]  # duplicate ids
+    cmask = torch.from_numpy(rng.random((q, w)) < 0.6).to(dev) & (cand < n)
+    cmask[-1] = False
+    before = kernel.launches.count
+    s_k, i_k = ops.ivf_candidate_scan(qv, emb, cand, cmask, k)
+    torch.cuda.synchronize()
+    assert kernel.launches.count == before + 1
+    assert s_k.shape == i_k.shape == (q, k)
+    for tiled in (False, True):
+        s_p, i_p = ops.ivf_candidate_scan(qv, emb, cand, cmask, k, tiled=tiled, c_blk=256,
+                                          use_kernel=False)
+        assert torch.equal(s_k, s_p) and torch.equal(i_k, i_p), tiled
+    assert torch.equal(i_k[-1, :min(k, w)], cand[-1, :min(k, w)])
+
+
+def test_new_kernels_refuse_bad_inputs(dev):
+    from repro_torch.kernels.ell_spmm import ops as eops
+    from repro_torch.kernels.ivf_scan import kernel as ikernel
+
+    feat = torch.zeros((1, 4, 8), dtype=torch.float16, device=dev)
+    idx = torch.zeros((1, 4, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="fp32/bf16"):
+        eops.ell_aggregate(feat, idx, idx.bool())
+    q = torch.zeros((1, 4), device=dev)
+    cand = torch.zeros((1, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="k="):
+        ikernel.ivf_scan_tiles(q, torch.zeros((5, 4), device=dev), cand, cand.bool(), 9)
+    with pytest.raises(ValueError, match="int32"):
+        ikernel.ivf_scan_tiles(q, torch.zeros((5, 4), device=dev), cand.long(), cand.bool(), 1)
+
+
+# ---------------------------------------------------- the index kinds ----
+def test_index_kinds_on_the_card_match_the_cpu(dev):
+    """IVF and sharded IVF built on the CPU, moved to the card: the card's
+    search (ivf_scan / topk_sim kernels) equals the CPU's plain search, ids
+    exactly, scores within 1e-6 (the centroid probe is a cuBLAS product on
+    the card).  kmeans on the card twice gives the same bits; sharded brute
+    ids equal brute ids on the card."""
+    from repro_torch.core import indexing as ix
+    from repro_torch.core.sharding import ShardedIndex
+    from repro_torch.graph import generators
+    from repro_torch.kernels.ivf_scan import kernel
+
+    g = generators.citation_graph(6000, seed=4, with_text=False)
+    q = g.node_feat[np.random.default_rng(1).choice(6000, 8)]
+    for build in (lambda d: ix.IVFIndex.build(g.node_feat, n_clusters=16, device=d),
+                  lambda d: ShardedIndex.build(g.node_feat, n_shards=3, inner="ivf",
+                                               n_clusters=8, device=d)):
+        cpu = build("cpu")
+        card = type(cpu)(**{f: (v.to(dev) if torch.is_tensor(v) else v)
+                            for f, v in vars(cpu).items()})
+        before = kernel.launches.count
+        s_c, i_c = card.search(q, 10)
+        assert kernel.launches.count > before
+        s_h, i_h = cpu.search(q, 10)
+        assert torch.equal(i_c.cpu(), i_h)
+        assert (s_c.cpu() - s_h).abs().max().item() <= 1e-6
+    a, b = (ix.IVFIndex.build(g.node_feat, n_clusters=16, device=dev) for _ in range(2))
+    assert torch.equal(a.centroids, b.centroids) and torch.equal(a.lists, b.lists)
+    bs, bi = ix.BruteIndex.build(g.node_feat, device=dev).search(q, 9)
+    ss, si = ShardedIndex.build(g.node_feat, n_shards=7, device=dev).search(q, 9)
+    assert torch.equal(si, bi) and (ss - bs).abs().max().item() <= 1e-6
+
+
+def test_ivf_serve_on_the_card_matches_the_cpu(dev):
+    """One reduced ``--index ivf`` serve on the card and on the CPU, with
+    the same weights: retrieved nodes, prompts and tokens equal."""
+    import argparse
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ivf_scan import kernel
+    from repro_torch.launch.serve import _serve_rag
+
+    cfg = get_config("starcoder2-3b").reduced_cfg
+    args = dict(requests=6, slots=4, max_new=6, nodes=3000, index="ivf", shards=None,
+                retrieval="auto", cache_policy="lru")
+    before = kernel.launches.count
+    card = _serve_rag(cfg, argparse.Namespace(**args, device="cuda"))
+    assert kernel.launches.count - before == card["retrieval_batches"] > 0
+    p = card["params"]
+    host = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v.cpu())
+            for k, v in p.items()}
+    cpu = _serve_rag(cfg, argparse.Namespace(**args, device="cpu"), params=host)
+    runs = [{r.uid: r for r in out["done"]} for out in (card, cpu)]
+    assert len(runs[0]) == 6
+    for uid, a in runs[0].items():
+        b = runs[1][uid]
+        assert np.array_equal(a.retrieved_nodes, b.retrieved_nodes), uid
+        assert np.array_equal(a.prompt_ids, b.prompt_ids), uid
+        assert a.out_tokens == b.out_tokens, uid

@@ -32,11 +32,12 @@ def test_port_imports_neither_jax_nor_the_reference():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 55  # every module of the port was imported
+    assert int(out.stdout.strip()) >= 64  # every module of the port was imported
 
 
 def _entry_points():
-    from repro_torch.core.indexing import BruteIndex
+    from repro_torch.core.indexing import BruteIndex, IVFIndex
+    from repro_torch.core.sharding import ShardedIndex
     from repro_torch.core.pipeline import RGLPipeline
     from repro_torch.graph import generators
     from repro_torch.graph.ell import csr_to_ell
@@ -55,6 +56,8 @@ def _entry_points():
         "init_cache": lambda: tm.init_cache(cfg, 1, 8),
         "csr_to_ell": lambda: csr_to_ell(g),
         "BruteIndex.build": lambda: BruteIndex.build(g.node_feat),
+        "IVFIndex.build": lambda: IVFIndex.build(g.node_feat),
+        "ShardedIndex.build": lambda: ShardedIndex.build(g.node_feat, n_shards=2, inner="ivf"),
         "RGLPipeline": lambda: RGLPipeline(graph=ell, index=None, node_emb=ell.node_feat),
         "ServeEngine": lambda: ServeEngine(params, cfg, slots=1, cache_len=8),
         "launch.train": lambda: train.main(["--arch", "starcoder2-3b", "--steps", "1"]),
@@ -62,7 +65,8 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", ["init_params", "init_cache", "csr_to_ell", "BruteIndex.build",
-                                  "RGLPipeline", "ServeEngine", "launch.train"])
+                                  "IVFIndex.build", "ShardedIndex.build", "RGLPipeline",
+                                  "ServeEngine", "launch.train"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour of a machine without CUDA")

@@ -155,9 +155,11 @@ def test_induced_adjacency_matches(stacks):
 
 
 def test_unported_paths_raise(stacks):
-    """The IVF and sharded indexes still raise (ROADMAP Queue 1 items 9 and
-    14); the compact backend, ``auto`` at >= 100k nodes and the non-BFS
-    strategies, which raised before, now run and match the reference."""
+    """Paths that raised in earlier slices now run: the compact backend,
+    ``auto`` at >= 100k nodes, the non-BFS strategies (matching the
+    reference) and every index kind (held to the reference in
+    ``tests/test_torch_ivf.py`` and ``tests/test_torch_sharding.py``); an
+    unknown mode, index kind or device still raises."""
     _, ref_pipe, pipe = stacks
     seeds = np.array([[1990, 1995, 1995]], np.int32)
     a = ref_gr.retrieve_subgraph(ref_pipe.graph, jnp.asarray(seeds), mode="compact")
@@ -181,10 +183,11 @@ def test_unported_paths_raise(stacks):
                                       mode="dense"))
     with pytest.raises(ValueError, match="unknown retrieval mode"):
         gr.retrieve_subgraph(pipe.graph, seeds, mode="fast")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        build_index(pipe.node_emb, kind="ivf", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        build_index(pipe.node_emb, kind="sharded", device="cpu")
+    for kind in ("ivf", "sharded", "sharded_ivf"):
+        s, i = build_index(pipe.node_emb, kind=kind, device="cpu").search(pipe.node_emb[:2], 3)
+        assert s.shape == i.shape == (2, 3) and i[:, 0].tolist() == [0, 1]
+    with pytest.raises(ValueError, match="unknown index kind"):
+        build_index(pipe.node_emb, kind="hnsw", device="cpu")
     with pytest.raises(ValueError, match="lives on"):
         dataclasses.replace(pipe, device="meta")
 
