@@ -6,10 +6,17 @@ tensors, fp32 or bf16, dh in {16, 64, 128}, H a multiple of KV), raises
 on anything else, allocates the outputs, launches on the current stream and
 counts the launch.  The dq pass writes ``delta`` for the dk/dv pass, which
 must be launched after it on the same stream.
+
+The C side picks each pass's kernel by (type, dh): bf16 at dh 64 and 128
+runs the backward on the tensor cores.  There the dk/dv pass splits each KV
+head's query heads into groups, whose fp32 partials land in a scratch that
+this wrapper allocates at the size ``flash_bwd_dkv_plan`` gives, and a
+second kernel of the same call sums them.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -24,14 +31,48 @@ HEAD_DIMS = (16, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65_535
 
+_P, _I, _F, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.POINTER(ctypes.c_int)
+_ARGTYPES = {  # pointers, ints, scale, stream
+    "flash_fwd": [_P] * 5 + [_I] * 7 + [_F, _P],
+    "flash_bwd_dq": [_P] * 8 + [_I] * 7 + [_F, _P],
+    "flash_bwd_dkv": [_P] * 9 + [_I] * 8 + [_F, _P],
+    "flash_bwd_dkv_plan": [_I] * 7 + [_IP, ctypes.POINTER(ctypes.c_longlong)],
+    "flash_bwd_tc_occupancy": [_I, _I, _IP, _IP],
+}
 
-def _fn(name: str, n_ptr: int):
+
+def _fn(name: str):
     fn = getattr(build.library(), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def dkv_plan(device: int, b: int, s: int, h: int, kvh: int, dh: int, window: int,
+             dtype: int) -> tuple[int, int]:
+    """(query-head groups, fp32 scratch elements) of the dk/dv pass at this
+    shape on CUDA ``device``, as the C side plans them; (0, 0) where the
+    pass runs the CUDA-core kernel.  ``window`` 0 is causal only and
+    ``dtype`` the C code (0 fp32, 1 bf16)."""
+    groups, scratch = ctypes.c_int(), ctypes.c_longlong()
+    with torch.cuda.device(device):
+        err = _fn("flash_bwd_dkv_plan")(b, s, h, kvh, dh, window, dtype, ctypes.byref(groups),
+                                        ctypes.byref(scratch))
+    build.check_status(err, "flash_bwd_dkv_plan")
+    return groups.value, scratch.value
+
+
+@functools.lru_cache(maxsize=None)
+def tc_occupancy(pass_: int, dh: int) -> tuple[int, int]:
+    """(dynamic shared memory in bytes, blocks an SM holds) of the tensor-core
+    backward kernel of pass 0 (dq) or 1 (dk/dv) at ``dh``, from the card's
+    occupancy calculator; for reports."""
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    err = _fn("flash_bwd_tc_occupancy")(pass_, dh, ctypes.byref(smem), ctypes.byref(blocks))
+    build.check_status(err, "flash_bwd_tc_occupancy")
+    return smem.value, blocks.value
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[int], *rest):
@@ -77,10 +118,10 @@ def flash_fwd_kernel(q, k, v, window: Optional[int] = None):
     b, s, h, kvh, dh, win, dt, scale = _check(q, k, v, window)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    err = _fn("flash_fwd", 5)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                              lse.data_ptr(), b, s, h, kvh, dh, win, dt, scale, _stream(q))
-    fwd_launches.count += 1
+    err = _fn("flash_fwd")(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                           lse.data_ptr(), b, s, h, kvh, dh, win, dt, scale, _stream(q))
     build.check_status(err, "flash_fwd")
+    fwd_launches.count += 1
     return o, lse
 
 
@@ -90,25 +131,29 @@ def flash_bwd_dq_kernel(q, k, v, o, do, lse, window: Optional[int] = None):
     _check_rows("lse", lse, b, h, s, q.device)
     dq = torch.empty_like(q)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    err = _fn("flash_bwd_dq", 8)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                                 b, s, h, kvh, dh, win, dt, scale, _stream(q))
-    dq_launches.count += 1
+    err = _fn("flash_bwd_dq")(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                              do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                              b, s, h, kvh, dh, win, dt, scale, _stream(q))
     build.check_status(err, "flash_bwd_dq")
+    dq_launches.count += 1
     return dq, delta
 
 
 def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, window: Optional[int] = None):
     """Backward pass 2 -> (dk, dv) like k, summed over each KV head's query
-    heads.  ``delta`` comes from :func:`flash_bwd_dq_kernel`."""
+    heads.  ``delta`` comes from :func:`flash_bwd_dq_kernel`.  One call is
+    one counted launch, the tensor-core path's partial-sum kernel included."""
     b, s, h, kvh, dh, win, dt, scale = _check(q, k, v, window, do)
     _check_rows("lse", lse, b, h, s, q.device)
     _check_rows("delta", delta, b, h, s, q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    err = _fn("flash_bwd_dkv", 8)(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                                  lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                                  b, s, h, kvh, dh, win, dt, scale, _stream(q))
-    dkv_launches.count += 1
+    groups, scratch = dkv_plan(q.device.index, b, s, h, kvh, dh, win, dt)
+    part = torch.empty(scratch, dtype=torch.float32, device=q.device) if scratch else None
+    err = _fn("flash_bwd_dkv")(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                               lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                               None if part is None else part.data_ptr(), b, s, h, kvh, dh, win,
+                               dt, groups, scale, _stream(q))
     build.check_status(err, "flash_bwd_dkv")
+    dkv_launches.count += 1
     return dk, dv

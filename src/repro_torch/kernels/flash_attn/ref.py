@@ -7,6 +7,7 @@
 every product are fp32.  Inputs are upcast before each product, which is
 exact for bf16 (the reference's ``preferred_element_type=float32``).
 ``attention`` is the GQA-aware dense oracle of ``repro.kernels.flash_attn.ref``.
+``split_bf16`` is the tensor-core backward kernels' operand split of p and ds.
 
 Layouts: q, o, do (B, S, H, dh); k, v (B, S, KV, dh) with query head h on KV
 head h // (H // KV); lse and delta (B, H, S) fp32 — the kernel's layout (the
@@ -36,6 +37,16 @@ def attention(q, k, v, *, window: Optional[int] = None) -> torch.Tensor:
     p = torch.softmax(torch.where(m, scores, NEG), dim=-1)
     o = torch.einsum("bkrqc,bckd->bqkrd", p.to(v.dtype).float(), v.float())
     return o.to(q.dtype).reshape(b, s, h, dh)
+
+
+def split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The operand split of the tensor-core backward kernels
+    (``csrc/flash_attn.cu``): an fp32 ``x`` as ``hi = bf16(x)`` and
+    ``lo = bf16(x - hi)``, each rounded to nearest even.  ``hi + lo`` holds
+    x to within 2^-17 |x|, so a product of x with a bf16 operand runs as two
+    bf16 products accumulating in fp32 at the reference's accuracy."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
 
 
 def tile_mask(qi: int, kj: int, cq: int, ck: int, window, device) -> torch.Tensor:

@@ -228,6 +228,7 @@ FLASH_CASES = [  # (B, S, H, KV, dh, window, dtype, plain chunk)
     (2, 96, 4, 1, 64, 7, torch.float32, 32),          # S not a multiple of the 64-row tile
     (1, 160, 12, 1, 16, 33, torch.bfloat16, 32),      # rep 12, ragged S, window
     (1, 4096, 24, 2, 128, 4096, torch.bfloat16, 512),  # the training shape
+    (2, 1000, 24, 2, 128, 300, torch.bfloat16, 125),  # tensor cores: B = 2, ragged S, window < S
 ]
 
 
@@ -277,6 +278,74 @@ def test_chunked_attention_launches_each_kernel_once(dev):
     assert [c.count for c in counters] == [n + 1 for n in before]
     for got, t in zip(grads, (q, k, v)):
         torch.testing.assert_close(got, t.grad, atol=1e-4, rtol=1e-4)
+
+
+def test_bf16_backward_is_deterministic(dev):
+    """Two tensor-core backward calls at the training shape give the same
+    bits: the dk/dv pass sums its head groups' partials in a fixed order."""
+    from repro_torch.kernels.flash_attn import kernel
+
+    rng = np.random.default_rng(11)
+    b, s, h, kv, dh, w = 1, 4096, 24, 2, 128, 4096
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                   .to(dev, torch.bfloat16)
+                   for shape in ((b, s, h, dh), (b, s, kv, dh), (b, s, kv, dh), (b, s, h, dh)))
+    o, lse = kernel.flash_fwd_kernel(q, k, v, w)
+    runs = []
+    for _ in range(2):
+        dq, delta = kernel.flash_bwd_dq_kernel(q, k, v, o, do, lse, w)
+        runs.append((dq, delta, *kernel.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, w)))
+    torch.cuda.synchronize()
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)
+
+
+def test_chunked_attention_bf16_launches_each_kernel_once(dev):
+    """The bf16 twin of the test above, at dh 128: autograd reaches the
+    tensor-core backward once per call.  Its gradients are held to the
+    plain backward of the same forward outputs (the kernel's o and lse:
+    the plain forward's o may round one element the other way) under the
+    bf16 rule of ``_flash_close``."""
+    from repro_torch.kernels.flash_attn import kernel, ref
+    from repro_torch.models.transformer import attention as attn
+
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(dev, torch.bfloat16).requires_grad_()
+               for shape in ((1, 256, 8, 128), (1, 256, 2, 128), (1, 256, 2, 128)))
+    do = torch.from_numpy(rng.standard_normal((1, 256, 8, 128)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    counters = (kernel.fwd_launches, kernel.dq_launches, kernel.dkv_launches)
+    before = [c.count for c in counters]
+    o = attn.chunked_attention(q, k, v, window=100, q_chunk=128, kv_chunk=128)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert [c.count for c in counters] == [n + 1 for n in before]
+    with torch.no_grad():
+        o_k, lse_k = kernel.flash_fwd_kernel(q, k, v, 100)
+        assert torch.equal(o, o_k)
+        want = ref.flash_bwd(q, k, v, o_k, lse_k, do, 100, 128, 128)
+    for name, t, w in zip(("dq", "dk", "dv"), (q, k, v), want):
+        _flash_close(t.grad, w, f"{name} bf16")
+
+
+def test_bf16_backward_refuses_misaligned_tensors(dev):
+    """The tensor-core passes copy 16-byte chunks of every row: a bf16
+    tensor at dh 64 that starts 2 bytes off is refused before any launch,
+    and nothing is counted."""
+    from repro_torch.kernels.flash_attn import kernel
+
+    shape = (1, 64, 4, 64)
+    q, do = (torch.zeros(shape, dtype=torch.bfloat16, device=dev) for _ in range(2))
+    k, v = (torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device=dev) for _ in range(2))
+    off = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=dev)[1:].view(shape)
+    lse = torch.zeros((1, 4, 64), dtype=torch.float32, device=dev)
+    before = (kernel.dq_launches.count, kernel.dkv_launches.count)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        kernel.flash_bwd_dq_kernel(off, k, v, q, do, lse)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        kernel.flash_bwd_dkv_kernel(q, k, v, off, lse, lse)
+    assert (kernel.dq_launches.count, kernel.dkv_launches.count) == before
 
 
 def test_flash_attn_refuses_what_it_does_not_take(dev):

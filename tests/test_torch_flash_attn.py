@@ -130,3 +130,60 @@ def test_cpu_tensors_take_the_plain_version_and_never_launch():
         attn.chunked_attention(q, k, v, q_chunk=32, kv_chunk=32, use_kernel=True)
     with pytest.raises(ValueError, match="multiple of the chunks"):
         attn.chunked_attention(q, k, v, q_chunk=48, kv_chunk=32)
+
+
+def _share_of_card_tolerance(got, want) -> float:
+    """The largest share of the card's gate for bf16 dq, dk and dv (``rtol``
+    2^-7, 2^-10 of the element's row's largest magnitude, a floor of 1e-5 of
+    the tensor's; ``chip_smoke.py``'s ``flash_close``) that any element uses."""
+    got, want = got.float(), want.float()
+    mag = want.abs()
+    tol = 2**-10 * mag.amax(-1, keepdim=True) + 1e-5 * mag.max() + 2**-7 * mag
+    return ((got - want).abs() / tol).max().item()
+
+
+def _dense_bwd_rounded(q, k, v, o, lse, do, rounding):
+    """dq, dk, dv of causal attention with H == KV, dense: s, p, dp and ds in
+    fp32 as in the reference, and each product that takes p or ds fed either
+    the kernels' split (``split``: hi·y + lo·y, two bf16 products summed in
+    fp32) or p and ds rounded once to bf16 (``single``)."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, of, dof = (t.float().transpose(1, 2) for t in (q, k, v, o, do))
+    causal = torch.ones(q.shape[1], q.shape[1], dtype=torch.bool).tril()
+    p = torch.exp(torch.where(causal, qf @ kf.transpose(-1, -2) * scale, ref.NEG) - lse[..., None])
+    delta = (dof * of).sum(-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta) * scale
+
+    def product(x, y):  # x: p or ds (fp32); y: bf16 values
+        if rounding == "split":
+            hi, lo = ref.split_bf16(x)
+            return hi.float() @ y + lo.float() @ y
+        return x.to(torch.bfloat16).float() @ y
+
+    grads = (product(ds, kf), product(ds.transpose(-1, -2), qf), product(p.transpose(-1, -2), dof))
+    return [g.transpose(1, 2).to(torch.bfloat16) for g in grads]
+
+
+@pytest.fixture(scope="module")
+def split_case():
+    """bf16 q, k, v, do at S = 2048, 4 heads, dh 128 (numpy, seeded), the
+    plain forward's o and lse, and the plain backward (fp32 p and ds)."""
+    q, k, v = _qkv(12, 1, 2048, 4, 4, 128)
+    do = np.random.default_rng(13).standard_normal(q.shape).astype(np.float32)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, do))
+    o, lse = ref.flash_fwd(tq, tk, tv, None, 512, 512)
+    return (tq, tk, tv, o, lse, tdo), ref.flash_bwd(tq, tk, tv, o, lse, tdo, None, 512, 512)
+
+
+@pytest.mark.parametrize("rounding", ["split", "single"])
+def test_split_products_hold_the_card_gate(split_case, rounding):
+    """Why the tensor-core backward splits p and ds: with the split, dq, dk
+    and dv stay within the card's gate against the fp32 plain version; with
+    p and ds rounded once to bf16 (as FlashAttention does), each falls out."""
+    inputs, want = split_case
+    got = _dense_bwd_rounded(*inputs, rounding)
+    shares = {n: _share_of_card_tolerance(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    if rounding == "split":
+        assert max(shares.values()) <= 1.0, shares
+    else:
+        assert min(shares.values()) > 1.0, shares
