@@ -1,10 +1,11 @@
 // FlashAttention-2 forward and backward for Hopper (sm_90a): causal plus an
 // optional sliding window, GQA read natively, bf16 or fp32 in and out.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/flash_attn/kernel.py:
-// flash_mha (body _flash_kernel) for the forward, and the reference's
-// hand-written backward src/repro/models/transformer/attention.py:143
-// _flash_bwd (pass 1, dq; pass 2, dk and dv) for the backward:
+// Replaces, for the forward, the Pallas TPU kernel
+// src/repro/kernels/flash_attn/kernel.py:69 flash_mha (body _flash_kernel)
+// and the reference's own forward src/repro/models/transformer/attention.py:94
+// _flash_fwd; for the backward, the reference's hand-written
+// attention.py:143 _flash_bwd (pass 1, dq; pass 2, dk and dv):
 //
 //   forward   s = (q . k) * dh^-0.5, masked to -1e30 where jk > iq or
 //             iq - jk >= window; online softmax with fp32 m, l, acc; p is
@@ -17,52 +18,52 @@
 //             query heads of the KV head in a fixed order (no atomics: two
 //             calls give the same bits).
 //
-// The reference's p, dp and ds are fp32, and its products are exact in fp32
-// and accumulate in fp32.  Layouts are the reference's: q, o, do, dq
-// (B, S, H, dh); k, v, dk, dv (B, S, KV, dh), query head h reading KV head
-// h / (H / KV) with no repeat copy; lse and delta (B, H, S) fp32.
+// The reference's products take bf16 (or fp32) inputs into fp32 sums; its
+// forward rounds p to v's type, its backward keeps p, dp and ds in fp32.
+// Layouts are the reference's: q, o, do, dq (B, S, H, dh); k, v, dk, dv
+// (B, S, KV, dh), query head h reading KV head h / (H / KV) with no repeat
+// copy; lse and delta (B, H, S) fp32.
 //
 // Two families of kernels; FLASH_DISPATCH picks one by (type, dh) at compile
-// time, never at run time:
+// time, never at run time, and no kernel falls back to another:
 //
-// 1. CUDA-core kernels: the forward at every type and dh, and the backward
-//    in fp32 (dh 16, 64, 128) and in bf16 at dh 16.  Every product is an
-//    fp32 FMA.  fp32 stays here because its products must be full fp32: the
-//    tensor cores take fp32 only as TF32 (10 mantissa bits).  bf16 at dh 16
-//    (the reduced configs) is one wgmma k-step, too narrow for the tensor-
-//    core machinery to pay.  One block of 256 threads per (64-row query
-//    tile, query head) for the forward and dq passes, and per (32-row key
-//    tile, KV head) for dk/dv, walking the rep query heads inside the
-//    block; the loop over the other sequence axis runs inside the block
-//    (the TPU grid's sequential axis).  Tiles sit in shared memory as fp32
-//    with a padded row stride (dh + 1: threads that read 16 different rows
-//    at one column hit 16 different banks); each thread keeps a 4 x 4 (2 x 4
-//    for dk/dv) block of scores and a 4 x dh/16 block of accumulators in
-//    registers, so each shared-memory load feeds two to four FMAs.  Row
-//    maxima and sums reduce over the 16 lanes of a half-warp with shuffles.
+// 1. Tensor-core kernels: bf16 at dh 64 and 128 (dh 128 is the training
+//    path), all three passes.  What bounds them on an H100: operations.  At
+//    the training shape (S = 4096, H = 24, KV = 2, dh = 128, window 4096)
+//    one product over the 201 M valid (q, k) pairs is 51.55 GFLOP, against
+//    0.02 ms of bytes.  Common machinery: 64-row tiles (wgmma's M) in
+//    shared memory in wgmma's 128-byte swizzle, copied by 16-byte cp.async;
+//    the other sequence axis streams through a ring of two stages, the next
+//    tile's copy in flight while the current one computes; products with
+//    both operands in shared memory, or with the fp32 accumulator of one
+//    product, whose layout is a register A operand's, feeding the next.
 //
-// 2. Tensor-core backward (bf16 at dh 64 and 128; dh 128 is the training
-//    path).  What bounds it on an H100: operations.  At the training shape
-//    (S = 4096, H = 24, KV = 2, dh = 128, window 4096) one product over the
-//    201 M valid (q, k) pairs is 51.55 GFLOP, against 0.02 ms of bytes.  p
-//    and ds are fp32 operands, and rounding them once to bf16 misses the
-//    reference's accuracy (2.3-2.7x the card's gate at S = 2048,
+//    Forward (flash_fwd_kernel_wgmma).  The reference's s takes bf16 q and
+//    k into fp32 (a product of two bf16 values is exact in fp32) and its
+//    P.V takes p rounded to bf16, so both products are single bf16 wgmmas
+//    with fp32 accumulators: only the order of the sums differs.  2
+//    products, 103 GFLOP at the training shape, 0.104 ms at 989 TFLOP/s.
+//    A block owns one 64-row query tile and a head group of HB query heads
+//    of one KV head (HB = 2 where H / KV is even, else 1), one warpgroup
+//    per head; every K and V tile in the ring serves all HB warpgroups,
+//    which halves the tile copies from L2.  At the training shape a head
+//    group walks 2,080 (query tile, key tile) steps of 32 KB of K and V, so
+//    12 head groups copy 0.82 GB a launch, not 24 heads' 1.64 GB (counted
+//    from the tile walk, not measured; the unique K and V are 4 MB).  The online softmax
+//    stays in the s accumulator's registers, in base 2 (scale * log2 e and
+//    the running max folded into one FMA); l sums the fp32 p, and p,
+//    rounded once to bf16, is the register A operand of P.V.  Tiles with
+//    every pair valid skip the mask.  The grid runs query tiles slowest,
+//    so the heaviest tiles of every head group are issued first.
+//
+//    Backward.  p and ds are fp32 operands, and rounding them once to bf16
+//    misses the reference's accuracy (2.3-2.7x the card's gate at S = 2048,
 //    tests/test_torch_flash_attn.py).  So each is split, hi = bf16(x) and
 //    lo = bf16(x - hi), which carries 16 of x's 24 bits (the rest is below
 //    2^-17 |x|), and its product runs as two bf16 wgmmas accumulating in
 //    fp32: dq does 4 products (s, dp, hi(ds) . k, lo(ds) . k), 206 GFLOP,
 //    0.208 ms at 989 TFLOP/s; dk/dv does 6 (s, dp and the split p^T . do
-//    and ds^T . q), 309 GFLOP, 0.313 ms.
-//
-//    Design: a block is one warpgroup (128 threads).  Its 64-row tiles sit
-//    in shared memory in wgmma's 128-byte-swizzled layout, copied by
-//    16-byte cp.async; the other sequence axis streams through a ring of two
-//    stages, the next tile's copy in flight while the current one computes.
-//    s and dp are m64n64k16 wgmmas with both operands in shared memory.
-//    Masking, p and ds stay fp32 in the accumulator registers, whose layout
-//    is that of a register A operand, so the split pairs feed the
-//    accumulating products from registers; their B is the tile as it lies
-//    (head dim contiguous), read transposed.
+//    and ds^T . q), 309 GFLOP, 0.313 ms.  A block is one warpgroup.
 //    dq: a block owns a 64-row query tile of one query head and walks the
 //    key tiles from the window's first to the diagonal.  dk/dv: a block
 //    owns a 64-row key tile of one KV head and a group of rep / G of its
@@ -74,7 +75,25 @@
 //    share; flash_bwd_dkv_plan chooses G so the longest block fits that
 //    share and sizes the scratch.
 //
-// Both families skip tiles that hold no valid (q, k) pair; that is exact: a
+// 2. CUDA-core kernels: fp32 at every dh (8, 16, 64, 128) and bf16 at dh 8
+//    and 16.  Every product is an fp32 FMA.  fp32 stays here because its
+//    products must be full fp32: the tensor cores take fp32 only as TF32
+//    (10 mantissa bits).  bf16 at dh 8 and 16 (the reduced configs) is half
+//    of or one wgmma k-step, too narrow for the tensor-core machinery to
+//    pay.  One block of 256 threads per (64-row query tile, query head) for
+//    the forward and dq passes, and per (32-row key tile, KV head) for
+//    dk/dv, walking the rep query heads inside the block; the loop over the
+//    other sequence axis runs inside the block (the TPU grid's sequential
+//    axis).  Tiles sit in shared memory as fp32 with a padded row stride
+//    (dh + 1: threads that read 16 different rows at one column hit 16
+//    different banks); each thread keeps a 4 x 4 (2 x 4 for dk/dv) block of
+//    scores and a 4 x max(dh / 16, 1) block of accumulators in registers,
+//    so each shared-memory load feeds two to four FMAs.  Row maxima and sums
+//    reduce over the 16 lanes of a half-warp with shuffles.  Lane tx of a
+//    half-warp owns head columns tx + 16 j; at dh 8 lanes 0..7 own one each
+//    and lanes 8..15 compute a copy of lane tx - 8's and write nothing.
+//
+// Every kernel skips tiles that hold no valid (q, k) pair; that is exact: a
 // tile before a row's window only adds terms that corr = exp(-1e30 - m) = 0
 // wipes when the row's first valid tile arrives, and a tile past the
 // diagonal adds p = exp(-1e30 - m) = 0.  The heaviest tiles are issued
@@ -125,6 +144,20 @@ __device__ __forceinline__ bool valid(int iq, int jk, int window) {
   return jk <= iq && (window <= 0 || iq - jk < window);
 }
 
+// Head columns of the CUDA-core kernels: lane tx of a half-warp owns columns
+// tx + 16 dd, dd < kRD.  At dh 8 lanes 0..7 own one each; lanes 8..15 read
+// column tx - 8 (a copy of lane tx - 8's work) and write nothing.
+template <int DH>
+constexpr int kRD = DH < 16 ? 1 : DH / 16;
+template <int DH>
+__device__ __forceinline__ int hcol(int tx, int dd) {
+  return DH < 16 ? tx % DH : tx + 16 * dd;
+}
+template <int DH>
+__device__ __forceinline__ bool owns(int tx) {
+  return DH >= 16 || tx < DH;
+}
+
 // rows [s0, s0 + R) of one head (row s at src + s * stride) into dst as fp32
 // with row stride DH + 1; rows at or past S read as 0.
 template <typename T, int R, int DH>
@@ -151,14 +184,14 @@ constexpr size_t dkv_smem() {
          ((2 * kTileKV + 2 * kTileQ) * (DH + 1) + 2 * kTileKV * (kTileQ + 1) + 2 * kTileQ);
 }
 
-// ------------------------------------------------------------- forward ----
+// -------------------------------------------------- forward (CUDA cores) ----
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse, int S, int H, int KV, int window,
                  float scale) {
   constexpr int LD = DH + 1, LP = kTileK + 1;
-  constexpr int RM = kTileQ / 16, RN = kTileK / 16, RD = DH / 16;
+  constexpr int RM = kTileQ / 16, RN = kTileK / 16, RD = kRD<DH>;
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + kTileQ * LD;
@@ -238,7 +271,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int i = 0; i < RM; ++i) p[i] = sP[(ty + 16 * i) * LP + c];
 #pragma unroll
-      for (int dd = 0; dd < RD; ++dd) vv[dd] = sV[c * LD + tx + 16 * dd];
+      for (int dd = 0; dd < RD; ++dd) vv[dd] = sV[c * LD + hcol<DH>(tx, dd)];
 #pragma unroll
       for (int i = 0; i < RM; ++i)
 #pragma unroll
@@ -252,7 +285,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const float den = fmaxf(l[i], 1e-20f);
     T* orow = o + ((long long)b * S + iq) * qs + (long long)h * DH;
 #pragma unroll
-    for (int dd = 0; dd < RD; ++dd) orow[tx + 16 * dd] = from_f<T>(acc[i][dd] / den);
+    for (int dd = 0; dd < RD; ++dd)
+      if (owns<DH>(tx)) orow[tx + 16 * dd] = from_f<T>(acc[i][dd] / den);
     if (tx == 0) lse[((long long)b * H + h) * S + iq] = m[i] + logf(den);
   }
 }
@@ -265,7 +299,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const float* __restrict__ lse, float* __restrict__ delta, T* __restrict__ dq,
                     int S, int H, int KV, int window, float scale) {
   constexpr int LD = DH + 1, LP = kTileK + 1;
-  constexpr int RM = kTileQ / 16, RN = kTileK / 16, RD = DH / 16;
+  constexpr int RM = kTileQ / 16, RN = kTileK / 16, RD = kRD<DH>;
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sdO = sQ + kTileQ * LD;
@@ -291,7 +325,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int i = 0; i < RM; ++i) {
     const int r = ty + 16 * i, iq = q0 + r;
     float part = 0.f;
-    if (iq < S) {
+    if (iq < S && owns<DH>(tx)) {
       const T* orow = o + qoff + (long long)iq * qs;
 #pragma unroll
       for (int dd = 0; dd < RD; ++dd)
@@ -354,7 +388,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
       for (int i = 0; i < RM; ++i) ds[i] = sS[(ty + 16 * i) * LP + c];
 #pragma unroll
-      for (int dd = 0; dd < RD; ++dd) kk[dd] = sK[c * LD + tx + 16 * dd];
+      for (int dd = 0; dd < RD; ++dd) kk[dd] = sK[c * LD + hcol<DH>(tx, dd)];
 #pragma unroll
       for (int i = 0; i < RM; ++i)
 #pragma unroll
@@ -367,7 +401,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     if (iq >= S) continue;
     T* row = dq + qoff + (long long)iq * qs;
 #pragma unroll
-    for (int dd = 0; dd < RD; ++dd) row[tx + 16 * dd] = from_f<T>(acc[i][dd]);
+    for (int dd = 0; dd < RD; ++dd)
+      if (owns<DH>(tx)) row[tx + 16 * dd] = from_f<T>(acc[i][dd]);
   }
 }
 
@@ -379,7 +414,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                      int S, int H, int KV, int window, float scale) {
   constexpr int LD = DH + 1, LP = kTileQ + 1;
-  constexpr int RM = kTileKV / 16, RN = kTileQ / 16, RD = DH / 16;
+  constexpr int RM = kTileKV / 16, RN = kTileQ / 16, RD = kRD<DH>;
   extern __shared__ float smem[];
   float* sK = smem;
   float* sV = sK + kTileKV * LD;
@@ -470,8 +505,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         }
 #pragma unroll
         for (int dd = 0; dd < RD; ++dd) {
-          e[dd] = sdO[rq * LD + tx + 16 * dd];
-          a[dd] = sQ[rq * LD + tx + 16 * dd];
+          e[dd] = sdO[rq * LD + hcol<DH>(tx, dd)];
+          a[dd] = sQ[rq * LD + hcol<DH>(tx, dd)];
         }
 #pragma unroll
         for (int i = 0; i < RM; ++i)
@@ -490,13 +525,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     const long long off = koff + (long long)jk * ks;
 #pragma unroll
     for (int dd = 0; dd < RD; ++dd) {
+      if (!owns<DH>(tx)) continue;
       dk[off + tx + 16 * dd] = from_f<T>(acc_k[i][dd]);
       dv[off + tx + 16 * dd] = from_f<T>(acc_v[i][dd]);
     }
   }
 }
 
-// ----------------------------------- backward on the tensor cores (bf16) ----
+// -------------------------------------------- tensor-core kernels (bf16) ----
 using bf16 = __nv_bfloat16;
 constexpr int kWG = 128;   // one warpgroup a block
 constexpr int kTile = 64;  // rows of every tile (wgmma's M)
@@ -574,15 +610,16 @@ __device__ __forceinline__ uint32_t sw128(int r, int c) {
 }
 
 // rows [s0, s0 + 64) of one head (row s at src + s * stride) into a swizzled
-// tile; rows at or past S read as 0.  Thread t copies chunk t % (DH / 8) of
-// rows t / (DH / 8) + R j (R = 1024 / DH rows a pass): rows R apart keep
-// their row % 8, so their swizzled addresses differ by R * 128 bytes, an
-// immediate offset from one register.
-template <int DH>
+// tile, copied by NT threads; rows at or past S read as 0.  Thread t copies
+// chunk t % (DH / 8) of rows t / (DH / 8) + R j (R = 8 NT / DH rows a pass):
+// rows R apart keep their row % 8, so their swizzled addresses differ by
+// R * 128 bytes, an immediate offset from one register.
+template <int DH, int NT>
 __device__ __forceinline__ void load_tile_async(uint32_t dst, const bf16* __restrict__ src, int s0,
-                                                int S, long long stride) {
-  constexpr int kChunks = DH / 8, kRows = kWG / kChunks;
-  const int r = (int)threadIdx.x / kChunks, c = (int)threadIdx.x % kChunks;
+                                                int S, long long stride, int t) {
+  constexpr int kChunks = DH / 8, kRows = NT / kChunks;
+  static_assert(kRows % 8 == 0 && kTile % kRows == 0, "rows a pass must keep the swizzle");
+  const int r = t / kChunks, c = t % kChunks;
   const uint32_t d = dst + sw128(r, c);
   const bf16* row = src + (long long)(s0 + r) * stride + c * 8;
 #pragma unroll
@@ -721,6 +758,177 @@ __device__ __forceinline__ void split_frags(const float (&x)[32], uint32_t (&hi)
   }
 }
 
+// d += a . b over b's 64 rows (k-steps KK = 0..3), a the bf16 register
+// operand and b an MN-major tile
+template <int DH, int... KK>
+__device__ __forceinline__ void product_rs1(float (&d)[DH / 2], const uint32_t (&a)[16],
+                                            uint64_t db, std::integer_sequence<int, KK...>) {
+  (wgmma_rs_t<DH, mnmajor_step(KK)>(d, a + 4 * KK, db), ...);
+}
+
+// 2^x on the special-function unit (relative error ~2^-22; results below
+// 2^-126 flush to 0, far under any p that moves a bf16 product)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ------------------------------------------- forward on the tensor cores ----
+constexpr float kLn2 = 0.6931471805599453f;
+
+// One key tile of the forward's online softmax, in the s accumulator (layout
+// above: element x is row 8 ((x >> 1) & 1) + this thread's r0, key
+// 8 (x >> 2) + (x & 1) + this thread's c0).  Scores and the running max m
+// are in base 2: s c with c = dh^-0.5 log2 e, so p = 2^(s c - m) =
+// exp(s dh^-0.5 - m ln 2).  s becomes p (fp32), l (this thread's share of
+// each row's sum: its 16 columns) is rescaled and adds the fp32 p, and corr
+// is the rescale of the row's accumulator.  MASK: the tile holds invalid
+// pairs, which score kNeg, as in the reference: a row with no valid key yet
+// gets p = 1, which corr = 2^(kNeg - m) = 0 wipes at its first valid key.
+// Such a tile scales before it subtracts: fma(kNeg, c, -m) with m =
+// round(kNeg c) would leave the product's rounding error (~1e21) in the
+// exponent.
+template <bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], float c, int iq0, int jk0,
+                                             int window) {
+  float mx[2] = {kNeg, kNeg};
+#pragma unroll
+  for (int x = 0; x < 32; ++x) {
+    const int i = (x >> 1) & 1;
+    if constexpr (MASK)
+      s[x] = valid(iq0 + 8 * i, jk0 + 8 * (x >> 2) + (x & 1), window) ? s[x] * c : kNeg;
+    mx[i] = fmaxf(mx[i], s[x]);
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {  // the row's 64 columns lie in the 4 threads of a quad
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    // without the mask, s is raw: max(s) c is the max of the rounded s c
+    const float m_new = fmaxf(m[i], MASK ? mx[i] : mx[i] * c);
+    corr[i] = exp2_approx(m[i] - m_new);
+    m[i] = m_new;
+  }
+#pragma unroll
+  for (int x = 0; x < 32; ++x) {
+    const int i = (x >> 1) & 1;
+    s[x] = exp2_approx(MASK ? s[x] - m[i] : fmaf(s[x], c, -m[i]));
+    sum[i] += s[x];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + sum[i];
+}
+
+template <int DH, int HB>
+constexpr size_t fwd_tc_smem() {
+  return 1024 + (HB + 4) * tile_bytes<DH>();
+}
+
+// A block: HB warpgroups, warpgroup w the query head blockIdx.x HB + w (all
+// of one KV head, since HB divides H / KV) over the 64-row query tile
+// blockIdx.z from the last; c = dh^-0.5 log2 e.
+template <int DH, int HB>
+__global__ void __launch_bounds__(HB * kWG)
+flash_fwd_kernel_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                       int S, int H, int KV, int window, float c) {
+  constexpr uint32_t T = tile_bytes<DH>();
+  using HeadSteps = std::make_integer_sequence<int, DH / 16>;
+  extern __shared__ __align__(1024) unsigned char smem_tc[];
+  const uint32_t pad = ((smem_u32(smem_tc) + 1023) & ~1023u) - smem_u32(smem_tc);
+  // q of warpgroup w at base + w T; stage st: k at base + (HB + 2 st) T, v after it
+  const uint32_t base = smem_u32(smem_tc) + pad;
+
+  const int wg = (int)threadIdx.x / kWG, tid = (int)threadIdx.x % kWG;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int r0 = 16 * warp + (lane >> 2), c0 = 2 * (lane & 3);
+  const int n_qt = (S + kTile - 1) / kTile;
+  const int q0 = (n_qt - 1 - (int)blockIdx.z) * kTile;  // heaviest query tile first
+  const int h = (int)blockIdx.x * HB + wg, b = blockIdx.y, g = h / (H / KV);
+  const long long qs = (long long)H * DH, ks = (long long)KV * DH;
+  const long long qoff = (long long)b * S * qs + (long long)h * DH;
+  const bf16* kb = k + (long long)b * S * ks + (long long)g * DH;
+  const bf16* vb = v + (long long)b * S * ks + (long long)g * DH;
+  const int row_hi = min(q0 + kTile, S) - 1;
+  const int col_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_lo = col_lo / kTile, t_hi = row_hi / kTile;
+  const uint32_t sQ = base + wg * T;
+
+  load_tile_async<DH, kWG>(sQ, q + qoff, q0, S, qs, tid);
+  load_tile_async<DH, HB * kWG>(base + HB * T, kb, t_lo * kTile, S, ks, (int)threadIdx.x);
+  load_tile_async<DH, HB * kWG>(base + (HB + 1) * T, vb, t_lo * kTile, S, ks, (int)threadIdx.x);
+  cp_async_commit();
+
+  float acc[DH / 2], m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  for (int t = t_lo; t <= t_hi; ++t) {
+    const int st = (t - t_lo) & 1;
+    const uint32_t sK = base + (HB + 2 * st) * T, sV = sK + T;
+    cp_async_wait_all();
+    __syncthreads();  // tile t is in; every warpgroup is done with the other stage
+    if (t < t_hi) {
+      const uint32_t nK = base + (HB + 2 - 2 * st) * T;
+      load_tile_async<DH, HB * kWG>(nK, kb, (t + 1) * kTile, S, ks, (int)threadIdx.x);
+      load_tile_async<DH, HB * kWG>(nK + T, vb, (t + 1) * kTile, S, ks, (int)threadIdx.x);
+    }
+    cp_async_commit();
+
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    pin(s);
+    wgmma_fence();
+    product_ss(s, desc_kmajor(sQ), desc_kmajor(sK), HeadSteps());
+    wgmma_commit();
+    wgmma_wait();
+    pin(s);
+
+    // every (q, k) pair of the tile valid: the same for all warpgroups
+    const int k0 = t * kTile;
+    const bool full = k0 + kTile - 1 <= q0 && (window <= 0 || q0 + kTile - 1 - k0 < window);
+    float corr[2];
+    if (full) {
+      softmax_tile<false>(s, m, l, corr, c, q0 + r0, k0 + c0, window);
+    } else {
+      softmax_tile<true>(s, m, l, corr, c, q0 + r0, k0 + c0, window);
+    }
+#pragma unroll
+    for (int x = 0; x < DH / 2; ++x) acc[x] *= corr[(x >> 1) & 1];
+    uint32_t p[16];  // p.astype(v.dtype): the A operand of P.V
+#pragma unroll
+    for (int i = 0; i < 16; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+    pin(p);
+    pin(acc);
+    wgmma_fence();
+    product_rs1<DH>(acc, p, desc_mnmajor(sV), RowSteps());
+    wgmma_commit();
+    wgmma_wait();
+    pin(acc);
+    pin(p);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {  // the row's sum over its quad
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int iq = q0 + r0 + 8 * i;
+    if (iq >= S) continue;
+    const float den = fmaxf(l[i], 1e-20f);
+    bf16* row = o + qoff + (long long)iq * qs + c0;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+      *reinterpret_cast<uint32_t*>(row + 8 * n) =
+          pack_bf16(acc[4 * n + 2 * i] / den, acc[4 * n + 2 * i + 1] / den);
+    if ((lane & 3) == 0) lse[((long long)b * H + h) * S + iq] = m[i] * kLn2 + logf(den);
+  }
+}
+
+// ------------------------------------------ backward on the tensor cores ----
 __device__ __forceinline__ float dot8(uint4 a, uint4 b, float acc) {
   const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
   const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
@@ -771,10 +979,10 @@ flash_bwd_dq_kernel_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k
   const int col_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int t_lo = col_lo / kTile, t_hi = row_hi / kTile;
 
-  load_tile_async<DH>(sQ, q + qoff, q0, S, qs);
-  load_tile_async<DH>(sdO, dout + qoff, q0, S, qs);
-  load_tile_async<DH>(base + 2 * T, kb, t_lo * kTile, S, ks);
-  load_tile_async<DH>(base + 3 * T, vb, t_lo * kTile, S, ks);
+  load_tile_async<DH, kWG>(sQ, q + qoff, q0, S, qs, tid);
+  load_tile_async<DH, kWG>(sdO, dout + qoff, q0, S, qs, tid);
+  load_tile_async<DH, kWG>(base + 2 * T, kb, t_lo * kTile, S, ks, tid);
+  load_tile_async<DH, kWG>(base + 3 * T, vb, t_lo * kTile, S, ks, tid);
   cp_async_commit();
   {  // delta = rowsum(do * o) while the copies fly: two threads a row
     const int r = tid >> 1, iq = q0 + r, c_lo = (tid & 1) * (DH / 2);
@@ -810,8 +1018,8 @@ flash_bwd_dq_kernel_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k
     __syncthreads();  // tile t is in; every thread is done with the other stage
     if (t < t_hi) {
       const uint32_t nK = base + (4 - 2 * st) * T;
-      load_tile_async<DH>(nK, kb, (t + 1) * kTile, S, ks);
-      load_tile_async<DH>(nK + T, vb, (t + 1) * kTile, S, ks);
+      load_tile_async<DH, kWG>(nK, kb, (t + 1) * kTile, S, ks, tid);
+      load_tile_async<DH, kWG>(nK + T, vb, (t + 1) * kTile, S, ks, tid);
     }
     cp_async_commit();
 
@@ -894,14 +1102,14 @@ flash_bwd_dkv_kernel_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ 
   const float* rows_g = (tid < kTile ? lse : delta) + (long long)b * H * S;
   auto issue = [&](int i, int st) {
     const int h = h_lo + i / n_t, q0 = (t_lo + i % n_t) * kTile;
-    load_tile_async<DH>(base + (2 + 2 * st) * T, qb + h * DH, q0, S, qs);
-    load_tile_async<DH>(base + (3 + 2 * st) * T, dob + h * DH, q0, S, qs);
+    load_tile_async<DH, kWG>(base + (2 + 2 * st) * T, qb + h * DH, q0, S, qs, tid);
+    load_tile_async<DH, kWG>(base + (3 + 2 * st) * T, dob + h * DH, q0, S, qs, tid);
     const float* row = rows_g + (long long)h * S;
     const int iq = q0 + (tid & (kTile - 1));
     cp_async4(sRows + st * 2 * kTile * 4 + tid * 4, iq < S ? row + iq : row, iq < S);
   };
-  load_tile_async<DH>(base, k + koff, k0, S, ks);
-  load_tile_async<DH>(base + T, v + koff, k0, S, ks);
+  load_tile_async<DH, kWG>(base, k + koff, k0, S, ks, tid);
+  load_tile_async<DH, kWG>(base + T, v + koff, k0, S, ks, tid);
   issue(0, 0);
   cp_async_commit();
 
@@ -1008,16 +1216,40 @@ cudaError_t allow_smem(Kern kern, size_t smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// The forward's head group: query heads of one KV head that share a block.
+__host__ __device__ constexpr int fwd_head_group(int rep) { return rep % 2 == 0 ? 2 : 1; }
+
+template <int DH, int HB>
+int fwd_tc(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S, int H,
+           int KV, int window, float scale, cudaStream_t stream) {
+  const size_t smem = fwd_tc_smem<DH, HB>();
+  cudaError_t err = allow_smem(flash_fwd_kernel_wgmma<DH, HB>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(H / HB, B, (S + kTile - 1) / kTile);  // query tiles slowest: heaviest first
+  const double log2e = 1.4426950408889634;
+  flash_fwd_kernel_wgmma<DH, HB><<<grid, HB * kWG, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, S, H, KV, window,
+      (float)(scale * log2e));
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int DH>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S, int H,
         int KV, int window, float scale, cudaStream_t stream) {
-  const size_t smem = fwd_smem<DH>();
-  cudaError_t err = allow_smem(flash_fwd_kernel<T, DH>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kTileQ - 1) / kTileQ, H, B);
-  flash_fwd_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, S, H, KV, window, scale);
-  return (int)cudaGetLastError();
+  if constexpr (kTensorCores<T, DH>) {
+    if (!aligned16({q, k, v, o})) return (int)cudaErrorMisalignedAddress;
+    return fwd_head_group(H / KV) == 2
+               ? fwd_tc<DH, 2>(q, k, v, o, lse, B, S, H, KV, window, scale, stream)
+               : fwd_tc<DH, 1>(q, k, v, o, lse, B, S, H, KV, window, scale, stream);
+  } else {
+    const size_t smem = fwd_smem<DH>();
+    cudaError_t err = allow_smem(flash_fwd_kernel<T, DH>, smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((S + kTileQ - 1) / kTileQ, H, B);
+    flash_fwd_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, S, H, KV, window, scale);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T, int DH>
@@ -1086,10 +1318,11 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
 }
 
 template <typename Kern>
-int occupancy(Kern kern, size_t bytes, int* smem, int* blocks) {
+int occupancy(Kern kern, size_t bytes, int* smem, int* blocks, int threads = kWG) {
   *smem = (int)bytes;
   cudaError_t err = allow_smem(kern, bytes);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, kWG, bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, threads, bytes);
   return (int)err;
 }
 
@@ -1123,17 +1356,19 @@ int dkv_plan(int B, int S, int H, int KV, int window, int* groups, long long* sc
   return 0;
 }
 
-// dtype 0 = float32, 1 = bfloat16; dh in {16, 64, 128}
+// dtype 0 = float32, 1 = bfloat16; dh in {8, 16, 64, 128}
 #define FLASH_DISPATCH(FN, ...)                                         \
   do {                                                                  \
     if (dtype == 0) {                                                   \
       switch (dh) {                                                     \
+        case 8: return FN<float, 8>(__VA_ARGS__);                       \
         case 16: return FN<float, 16>(__VA_ARGS__);                     \
         case 64: return FN<float, 64>(__VA_ARGS__);                     \
         case 128: return FN<float, 128>(__VA_ARGS__);                   \
       }                                                                 \
     } else if (dtype == 1) {                                            \
       switch (dh) {                                                     \
+        case 8: return FN<__nv_bfloat16, 8>(__VA_ARGS__);               \
         case 16: return FN<__nv_bfloat16, 16>(__VA_ARGS__);             \
         case 64: return FN<__nv_bfloat16, 64>(__VA_ARGS__);             \
         case 128: return FN<__nv_bfloat16, 128>(__VA_ARGS__);           \
@@ -1147,7 +1382,9 @@ int dkv_plan(int B, int S, int H, int KV, int window, int* groups, long long* sc
 extern "C" {
 
 // q (B, S, H, dh), k and v (B, S, KV, dh) -> o like q, lse (B, H, S) fp32.
-// window <= 0: causal only.  Returns the cudaError_t of the launch.
+// window <= 0: causal only.  Returns the cudaError_t of the launch
+// (cudaErrorMisalignedAddress, before any launch, for a bf16 tensor at dh 64
+// or 128 that does not start on 16 bytes).
 int flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
               int H, int KV, int dh, int window, int dtype, float scale, cudaStream_t stream) {
   FLASH_DISPATCH(fwd, q, k, v, o, lse, B, S, H, KV, window, scale, stream);
@@ -1180,15 +1417,25 @@ int flash_bwd_dkv_plan(int B, int S, int H, int KV, int dh, int window, int dtyp
   FLASH_DISPATCH(dkv_plan, B, S, H, KV, window, groups, scratch);
 }
 
-// Dynamic shared memory (bytes) of the tensor-core backward kernel of
-// `pass` (0: dq, 1: dk/dv) at dh, and how many blocks of it an SM holds
-// (the occupancy calculator, from its registers and shared memory).
-int flash_bwd_tc_occupancy(int pass, int dh, int* smem, int* blocks) {
+// The tensor-core kernel of `pass` (0: dq, 1: dk/dv, 2: the forward, whose
+// head group follows rep = H / KV) at dh: its threads a block (128 a
+// warpgroup; the forward's head group is threads / 128), dynamic shared
+// memory (bytes) and how many blocks of it an SM holds (the occupancy
+// calculator, from its registers and shared memory).
+int flash_tc_occupancy(int pass, int dh, int rep, int* threads, int* smem, int* blocks) {
+  const int hb = fwd_head_group(rep);
+  *threads = pass == 2 ? hb * kWG : kWG;
   switch (pass * 1000 + dh) {
     case 64: return occupancy(flash_bwd_dq_kernel_wgmma<64>, dq_tc_smem<64>(), smem, blocks);
     case 128: return occupancy(flash_bwd_dq_kernel_wgmma<128>, dq_tc_smem<128>(), smem, blocks);
     case 1064: return occupancy(flash_bwd_dkv_kernel_wgmma<64>, dkv_tc_smem<64>(), smem, blocks);
     case 1128: return occupancy(flash_bwd_dkv_kernel_wgmma<128>, dkv_tc_smem<128>(), smem, blocks);
+    case 2064:
+      return hb == 2 ? occupancy(flash_fwd_kernel_wgmma<64, 2>, fwd_tc_smem<64, 2>(), smem, blocks, 2 * kWG)
+                     : occupancy(flash_fwd_kernel_wgmma<64, 1>, fwd_tc_smem<64, 1>(), smem, blocks);
+    case 2128:
+      return hb == 2 ? occupancy(flash_fwd_kernel_wgmma<128, 2>, fwd_tc_smem<128, 2>(), smem, blocks, 2 * kWG)
+                     : occupancy(flash_fwd_kernel_wgmma<128, 1>, fwd_tc_smem<128, 1>(), smem, blocks);
   }
   return (int)cudaErrorInvalidValue;
 }

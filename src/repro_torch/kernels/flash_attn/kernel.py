@@ -2,13 +2,16 @@
 the FlashAttention-2 forward and the two passes of its backward.
 
 Each wrapper checks what its kernel takes (one Hopper card, contiguous
-tensors, fp32 or bf16, dh in {16, 64, 128}, H a multiple of KV), raises
+tensors, fp32 or bf16, dh in ``HEAD_DIMS``, H a multiple of KV), raises
 on anything else, allocates the outputs, launches on the current stream and
 counts the launch.  The dq pass writes ``delta`` for the dk/dv pass, which
 must be launched after it on the same stream.
 
 The C side picks each pass's kernel by (type, dh): bf16 at dh 64 and 128
-runs the backward on the tensor cores.  There the dk/dv pass splits each KV
+runs all three passes on the tensor cores (and refuses a tensor that does
+not start on 16 bytes); fp32 at every dh and bf16 at dh 8 and 16 run the
+CUDA-core kernels.  The tensor-core forward serves a head group of query
+heads of one KV head per block.  The tensor-core dk/dv pass splits each KV
 head's query heads into groups, whose fp32 partials land in a scratch that
 this wrapper allocates at the size ``flash_bwd_dkv_plan`` gives, and a
 second kernel of the same call sums them.
@@ -27,7 +30,7 @@ fwd_launches = build.LaunchCounter()
 dq_launches = build.LaunchCounter()
 dkv_launches = build.LaunchCounter()
 
-HEAD_DIMS = (16, 64, 128)
+HEAD_DIMS = (8, 16, 64, 128)  # every d_head of the reference's configs
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65_535
 
@@ -37,7 +40,7 @@ _ARGTYPES = {  # pointers, ints, scale, stream
     "flash_bwd_dq": [_P] * 8 + [_I] * 7 + [_F, _P],
     "flash_bwd_dkv": [_P] * 9 + [_I] * 8 + [_F, _P],
     "flash_bwd_dkv_plan": [_I] * 7 + [_IP, ctypes.POINTER(ctypes.c_longlong)],
-    "flash_bwd_tc_occupancy": [_I, _I, _IP, _IP],
+    "flash_tc_occupancy": [_I] * 3 + [_IP] * 3,
 }
 
 
@@ -65,14 +68,16 @@ def dkv_plan(device: int, b: int, s: int, h: int, kvh: int, dh: int, window: int
 
 
 @functools.lru_cache(maxsize=None)
-def tc_occupancy(pass_: int, dh: int) -> tuple[int, int]:
-    """(dynamic shared memory in bytes, blocks an SM holds) of the tensor-core
-    backward kernel of pass 0 (dq) or 1 (dk/dv) at ``dh``, from the card's
-    occupancy calculator; for reports."""
-    smem, blocks = ctypes.c_int(), ctypes.c_int()
-    err = _fn("flash_bwd_tc_occupancy")(pass_, dh, ctypes.byref(smem), ctypes.byref(blocks))
-    build.check_status(err, "flash_bwd_tc_occupancy")
-    return smem.value, blocks.value
+def tc_occupancy(pass_: int, dh: int, rep: int = 1) -> tuple[int, int, int]:
+    """(threads a block, dynamic shared memory in bytes, blocks an SM holds)
+    of the tensor-core kernel of pass 0 (dq), 1 (dk/dv) or 2 (the forward,
+    whose head group, threads / 128, follows ``rep`` = H / KV) at ``dh``,
+    from the card's occupancy calculator; for reports."""
+    threads, smem, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _fn("flash_tc_occupancy")(pass_, dh, rep, ctypes.byref(threads), ctypes.byref(smem),
+                                    ctypes.byref(blocks))
+    build.check_status(err, "flash_tc_occupancy")
+    return threads.value, smem.value, blocks.value
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[int], *rest):

@@ -207,8 +207,9 @@ def _flash_close(got, want, what):
     2^-7 of the row's largest element once a row has two keys.  dq, dk and
     dv keep p and ds in fp32, so their row share is 2^-10.  A floor of 1e-5
     of the largest element covers rows that cancel to zero (dq's first).  At
-    the 4096-token training shape the H100 used at most 0.49 (o), 0.82 (dq),
-    0.85 (dk) and 0.79 (dv) of it, in ``chip_smoke.py``'s ``flash_close``."""
+    the 4096-token training shape the H100's tensor-core kernels used at
+    most 0.50 (o), 0.86 (dq), 0.85 (dk) and 0.83 (dv) of it, in
+    ``chip_smoke.py``'s ``flash_close``."""
     got, want = got.float(), want.float()
     if what.endswith("fp32"):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4, msg=what)
@@ -229,6 +230,10 @@ FLASH_CASES = [  # (B, S, H, KV, dh, window, dtype, plain chunk)
     (1, 160, 12, 1, 16, 33, torch.bfloat16, 32),      # rep 12, ragged S, window
     (1, 4096, 24, 2, 128, 4096, torch.bfloat16, 512),  # the training shape
     (2, 1000, 24, 2, 128, 300, torch.bfloat16, 125),  # tensor cores: B = 2, ragged S, window < S
+    (1, 160, 8, 2, 8, None, torch.float32, 32),       # dh 8 (a reduced config's)
+    (2, 96, 8, 2, 8, 33, torch.bfloat16, 32),         # dh 8, bf16, window
+    (1, 320, 6, 2, 128, None, torch.bfloat16, 64),    # rep 3: the forward's head group is 1
+    (1, 256, 4, 4, 64, 100, torch.bfloat16, 64),      # tensor cores at dh 64, rep 1
 ]
 
 
@@ -300,12 +305,28 @@ def test_bf16_backward_is_deterministic(dev):
         assert torch.equal(a, c)
 
 
+def test_bf16_forward_is_deterministic(dev):
+    """Two tensor-core forward calls at the training shape give the same
+    bits (no atomics; every row's sums in a fixed order)."""
+    from repro_torch.kernels.flash_attn import kernel
+
+    rng = np.random.default_rng(12)
+    b, s, h, kv, dh, w = 1, 4096, 24, 2, 128, 4096
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(dev, torch.bfloat16)
+               for shape in ((b, s, h, dh), (b, s, kv, dh), (b, s, kv, dh)))
+    runs = [kernel.flash_fwd_kernel(q, k, v, w) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)
+
+
 def test_chunked_attention_bf16_launches_each_kernel_once(dev):
     """The bf16 twin of the test above, at dh 128: autograd reaches the
-    tensor-core backward once per call.  Its gradients are held to the
-    plain backward of the same forward outputs (the kernel's o and lse:
-    the plain forward's o may round one element the other way) under the
-    bf16 rule of ``_flash_close``."""
+    tensor-core forward and backward once per call.  Its gradients are held
+    to the plain backward of the same forward outputs (the kernel's o and
+    lse: the plain forward's o may round one element the other way) under
+    the bf16 rule of ``_flash_close``."""
     from repro_torch.kernels.flash_attn import kernel, ref
     from repro_torch.models.transformer import attention as attn
 
@@ -346,6 +367,21 @@ def test_bf16_backward_refuses_misaligned_tensors(dev):
     with pytest.raises(RuntimeError, match="misaligned"):
         kernel.flash_bwd_dkv_kernel(q, k, v, off, lse, lse)
     assert (kernel.dq_launches.count, kernel.dkv_launches.count) == before
+
+
+def test_bf16_forward_refuses_misaligned_tensors(dev):
+    """The tensor-core forward copies 16-byte chunks of every row: a bf16 q
+    at dh 128 that starts 2 bytes off is refused before any launch (not sent
+    to another kernel), and nothing is counted."""
+    from repro_torch.kernels.flash_attn import kernel
+
+    shape = (1, 64, 4, 128)
+    k, v = (torch.zeros((1, 64, 2, 128), dtype=torch.bfloat16, device=dev) for _ in range(2))
+    off = torch.zeros(int(np.prod(shape)) + 1, dtype=torch.bfloat16, device=dev)[1:].view(shape)
+    before = kernel.fwd_launches.count
+    with pytest.raises(RuntimeError, match="misaligned"):
+        kernel.flash_fwd_kernel(off, k, v)
+    assert kernel.fwd_launches.count == before
 
 
 def test_flash_attn_refuses_what_it_does_not_take(dev):

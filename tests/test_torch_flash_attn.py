@@ -2,7 +2,10 @@
 seeded): the plain forward against the Pallas kernel in interpret mode and
 against the dense oracle, ``lse`` against the reference's ``_flash_fwd``,
 and ``chunked_attention``'s value and gradients against ``jax.vjp`` of the
-reference's custom-VJP ``chunked_attention``.
+reference's custom-VJP ``chunked_attention``; the tensor-core kernels'
+arithmetic (the backward's hi/lo split, the forward's base-2 online softmax)
+against the card's gate; and the kernels' head dims against every config of
+the reference.
 
 Tolerances: fp32 ``atol=rtol=2e-5`` for outputs (the reference's own sweep
 tolerance: both sides sum the same products in another order) and ``1e-4``
@@ -18,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import REGISTRY
 from repro.kernels.flash_attn import ops as ref_fops
 from repro.kernels.flash_attn import ref as ref_fref
 from repro.models.transformer import attention as ref_attn
@@ -132,13 +136,23 @@ def test_cpu_tensors_take_the_plain_version_and_never_launch():
         attn.chunked_attention(q, k, v, q_chunk=48, kv_chunk=32)
 
 
-def _share_of_card_tolerance(got, want) -> float:
-    """The largest share of the card's gate for bf16 dq, dk and dv (``rtol``
-    2^-7, 2^-10 of the element's row's largest magnitude, a floor of 1e-5 of
-    the tensor's; ``chip_smoke.py``'s ``flash_close``) that any element uses."""
+def test_head_dims_cover_every_reference_config():
+    """The card's kernels take every d_head of the reference's configs, full
+    and reduced (a config with another one fails here, not on the card)."""
+    dims = {cfg.d_head for spec in REGISTRY.values()
+            for cfg in (spec.model_cfg, spec.reduced_cfg) if hasattr(cfg, "d_head")}
+    assert {8, 16, 64, 128} <= dims, dims
+    assert dims <= set(fa_kernel.HEAD_DIMS), sorted(dims - set(fa_kernel.HEAD_DIMS))
+
+
+def _share_of_card_tolerance(got, want, row_share=2**-10) -> float:
+    """The largest share of the card's gate for a bf16 output (``rtol``
+    2^-7, ``row_share`` of the element's row's largest magnitude: 2^-10 for
+    dq, dk and dv, 2^-7 for o; a floor of 1e-5 of the tensor's;
+    ``chip_smoke.py``'s ``flash_close``) that any element uses."""
     got, want = got.float(), want.float()
     mag = want.abs()
-    tol = 2**-10 * mag.amax(-1, keepdim=True) + 1e-5 * mag.max() + 2**-7 * mag
+    tol = row_share * mag.amax(-1, keepdim=True) + 1e-5 * mag.max() + 2**-7 * mag
     return ((got - want).abs() / tol).max().item()
 
 
@@ -187,3 +201,46 @@ def test_split_products_hold_the_card_gate(split_case, rounding):
         assert max(shares.values()) <= 1.0, shares
     else:
         assert min(shares.values()) > 1.0, shares
+
+
+def _tc_forward_emulated(q, k, v, window):
+    """The tensor-core forward's arithmetic (``flash_fwd_kernel_wgmma`` in
+    ``csrc/flash_attn.cu``) over 64-key tiles: fp32 scores of the bf16 q and
+    k, kept in base 2 (s · c, c = dh^-0.5 · log2 e, in fp32), p = 2^(s·c − m)
+    with the running max m, l the sum of the fp32 p, P·V with p rounded once
+    to bf16, o = acc / max(l, 1e-20), lse = m · ln 2 + log(max(l, 1e-20)).
+    Tiles past the diagonal add p = 0, and masked rows score −1e30 as in the
+    reference, so walking every tile equals the kernel's tile skipping."""
+    b, s, h, dh = q.shape
+    rep = h // k.shape[2]
+    c = float(np.float32(dh**-0.5 * np.log2(np.e)))
+    qf = q.float().transpose(1, 2)
+    kf, vf = (t.float().transpose(1, 2).repeat_interleave(rep, 1) for t in (k, v))
+    m = torch.full((b, h, s), ref.NEG)
+    l = torch.zeros((b, h, s))
+    acc = torch.zeros((b, h, s, dh))
+    for k0 in range(0, s, 64):
+        ok = ref.tile_mask(0, k0, s, 64, window, q.device)
+        s2 = torch.where(ok, (qf @ kf[:, :, k0:k0 + 64].transpose(-1, -2)) * c, ref.NEG)
+        m_new = torch.maximum(m, s2.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s2 - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + 64]
+        m = m_new
+    den = l.clamp(min=1e-20)
+    o = (acc / den[..., None]).to(torch.bfloat16).transpose(1, 2)
+    return o, m * float(np.log(2)) + torch.log(den)
+
+
+@pytest.mark.parametrize("window", [None, 300])
+def test_tensor_core_forward_arithmetic_holds_the_card_gate(window):
+    """The forward kernel's base-2 softmax with its fp32 l and one bf16
+    rounding of p gives o within the card's gate (row share 2^-7) and lse
+    within its ``atol`` 1e-4 of the plain forward, at S = 2048, 8 query
+    heads over 2 KV heads, dh 128."""
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkv(14, 1, 2048, 8, 2, 128))
+    o, lse = _tc_forward_emulated(q, k, v, window)
+    o_p, lse_p = ref.flash_fwd(q, k, v, window, 512, 512)
+    assert _share_of_card_tolerance(o, o_p, 2**-7) <= 1.0
+    torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-5)
