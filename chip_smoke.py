@@ -109,23 +109,33 @@ def time_ms(fn, reps: int = 5, batch: int = 10) -> float:
     return statistics.median(samples)
 
 
-def device_ms(fn, calls: int = 10) -> tuple[float, dict]:
+# device_ms's traces: calls, traces taken and traces that came back empty
+PROFILER_TRACES = {"device_ms_calls": 0, "traces": 0, "empty_traces": 0}
+
+
+def device_ms(fn, calls: int = 10, traces: int = 3) -> tuple[float, dict]:
     """Time the card spends running ``fn``'s kernels, per call (the sum of
     their durations in a ``torch.profiler`` trace, host gaps excluded), and
-    that time split by kernel name."""
+    that time split by kernel name.  A trace that comes back without device
+    events (``torch.profiler`` sometimes records none) is taken again, up to
+    ``traces`` times; ``PROFILER_TRACES`` counts them."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    by_name = kernel_ms_by_name(prof, calls)
-    if not by_name:
-        raise RuntimeError("the profiler recorded no device time")
-    return sum(by_name.values()), by_name
+    PROFILER_TRACES["device_ms_calls"] += 1
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        by_name = kernel_ms_by_name(prof, calls)
+        PROFILER_TRACES["traces"] += 1
+        if by_name:
+            return sum(by_name.values()), by_name
+        PROFILER_TRACES["empty_traces"] += 1
+    raise RuntimeError(f"the profiler recorded no device time in {traces} traces")
 
 
 def kernel_ms_by_name(prof, per: int) -> dict:
@@ -145,8 +155,9 @@ def bound(n_bytes: float, *work: tuple[float, float]) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-# kernel-name fragments of the port's hand-written kernels in a trace
-KERNEL_GROUPS = (("frontier_expand", "ws_mark_kernel"), ("bfs_frontier", "frontier_hop_kernel"),
+# kernel-name fragments of the port's hand-written kernels in a trace (the
+# bfs_frontier pack kernel also zeroes the reach for the bulk hop)
+KERNEL_GROUPS = (("frontier_expand", "ws_mark_kernel"), ("bfs_frontier", "frontier_hop_"),
                  ("bfs_frontier", "pack_frontier_kernel"), ("topk_sim", "topk_sim_tile_kernel"),
                  ("ivf_scan", "ivf_scan_tile_kernel"), ("sorts", "ort"), ("sorts", "adix"))
 
@@ -224,7 +235,7 @@ def check_topk_sim(emb: torch.Tensor, rng: np.random.Generator) -> dict:
 
 
 def check_bfs_frontier(nbr: torch.Tensor, mask: torch.Tensor, rng: np.random.Generator) -> dict:
-    from repro_torch.kernels.bfs_frontier import ops
+    from repro_torch.kernels.bfs_frontier import kernel, ops
 
     dev = nbr.device
     n, kd = nbr.shape
@@ -235,17 +246,48 @@ def check_bfs_frontier(nbr: torch.Tensor, mask: torch.Tensor, rng: np.random.Gen
     torch.cuda.synchronize()
     want = ops.frontier_hop(front, nbr, mask, use_kernel=False)
     assert torch.equal(got, want), "bfs_frontier differs from its plain version"
-    # odd width (one-slot-per-lane path) on a small ELL with sentinel slots live
-    sn, sk = 3000, 13
-    snbr = torch.from_numpy(rng.integers(0, sn + 1, (sn, sk)).astype(np.int32)).to(dev)
-    smask = torch.from_numpy(rng.random((sn, sk)) < 0.7).to(dev)
-    sfront = torch.from_numpy(rng.random((3, sn)) < 0.05).to(dev)
-    assert torch.equal(ops.frontier_hop(sfront, snbr, smask, use_kernel=True),
-                       ops.frontier_hop(sfront, snbr, smask, use_kernel=False))
+    plans = {}  # the plans the wrapper passed to the C entry point
+
+    def hold(name, fr, nb, mk, variant):
+        out = ops.frontier_hop(fr, nb, mk, use_kernel=True)
+        torch.cuda.synchronize()
+        assert kernel.last_plan.variant == variant, (name, kernel.last_plan)
+        assert torch.equal(out, ops.frontier_hop(fr, nb, mk, use_kernel=False)), name
+        plans[name] = dataclasses.asdict(kernel.last_plan)
+        return fr
+
+    # at scale: two query groups (Q = 33, 64); the mask 8 and 1 bytes off
+    # 16-byte alignment (the row variants); a random non-prefix mask with
+    # live sentinel slots (bulk)
+    groups = {q: hold(f"q{q}", torch.from_numpy(rng.random((q, n)) < 1e-3).to(dev), nbr, mask,
+                      kernel.BULK) for q in (33, 64)}
+    flat = torch.zeros(n * kd + 16, dtype=torch.bool, device=dev)
+    for off, variant in ((8, kernel.ROWS8), (1, kernel.ROWS)):
+        view = flat[off:off + n * kd].view(n, kd)
+        view.copy_(mask)
+        hold(f"mask_offset_{off}", rand, nbr, view, variant)
+    del flat, view
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rmask = torch.rand((n, kd), generator=gen, device=dev) < 0.008
+    rnbr = torch.randint(0, n + 1, (n, kd), generator=gen, device=dev, dtype=torch.int32)
+    rnbr[::3, 5] = n
+    rmask[::3, 5] = True
+    hold("random_mask_live_sentinels", front, rnbr, rmask, kernel.BULK)
+    del rmask, rnbr
+    # small shapes: odd width (one slot a lane), a last tile 8 bytes past
+    # 16 (K = 24, N odd), rows too wide for the ring
+    for name, sn, sk, variant in (("k13", 3000, 13, kernel.ROWS), ("tail8", 3001, 24, kernel.BULK),
+                                  ("wide_rows", 40, 120_000, kernel.ROWS8)):
+        snbr = torch.from_numpy(rng.integers(0, sn + 1, (sn, sk)).astype(np.int32)).to(dev)
+        smask = torch.from_numpy(rng.random((sn, sk)) < 0.7).to(dev)
+        sfront = torch.from_numpy(rng.random((3, sn)) < 0.05).to(dev)
+        hold(name, sfront, snbr, smask, variant)
 
     f4 = rand
     run = lambda: ops.frontier_hop(f4, nbr, mask, use_kernel=True)  # noqa: E731
     profiler_ms, kernels = device_ms(run)
+    plans["main_ell_q4"] = dataclasses.asdict(kernel.last_plan)
+    print(json.dumps({"bfs_frontier_launch_plans": plans}), flush=True)
     plain_ms = time_ms(lambda: ops.frontier_hop(f4, nbr, mask, use_kernel=False), reps=3, batch=3)
     # library yardstick: the same hop as one sparse-matrix product, A (N, N)
     # CSR times the (N, Q) frontier; reach = product > 0
@@ -265,7 +307,13 @@ def check_bfs_frontier(nbr: torch.Tensor, mask: torch.Tensor, rng: np.random.Gen
             "max_abs_err": 0.0, "ms": time_ms(run), "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": time_ms(library), "profiler_ms": profiler_ms,
             "library_profiler_ms": device_ms(library)[0],
-            "device_kernels_ms": kernels, "shape": f"Q=4 N={n} K={kd} live_slots={nnz}",
+            "device_kernels_ms": kernels, "profiler_split_ms": {  # pack: and reach zeroing
+                "pack": sum(v for k_, v in kernels.items() if "pack_frontier" in k_),
+                "hop": sum(v for k_, v in kernels.items() if "frontier_hop_" in k_)},
+            "q64_ms": time_ms(lambda: ops.frontier_hop(groups[64], nbr, mask, use_kernel=True)),
+            "q64_profiler_ms": device_ms(
+                lambda: ops.frontier_hop(groups[64], nbr, mask, use_kernel=True))[0],
+            "shape": f"Q=4 N={n} K={kd} live_slots={nnz}",
             "full_ell_bound_ms": 1e3 * (5 * n * kd + 8 * n) / HBM_BYTES_PER_S}
 
 
@@ -297,6 +345,23 @@ def check_frontier_expand(nbr: torch.Tensor, mask: torch.Tensor, seeds: torch.Te
         for x in (cd, cd[:, 1:]):
             assert torch.equal(ops.ws_member(wsr, x, use_kernel=True),
                                ops.ws_member(wsr, x, use_kernel=False)), (q, c, w)
+    # the main path's candidates with one lane of a sentinel run changed
+    # (to an id of the workset, then to n - 1): a warp's 128 candidates that
+    # are all the sentinel but that one
+    groups = cand[0, :cand.shape[1] // 128 * 128].view(-1, 128).eq(n).all(1).nonzero().flatten()
+    at = int(groups[len(groups) // 2]) * 128 + 37
+    for new in (int(ws.ids[0, 0]), n - 1):
+        c2 = cand.clone()
+        c2[0, at] = new
+        assert torch.equal(ops.ws_member(ws.ids, c2, use_kernel=True),
+                           ops.ws_member(ws.ids, c2, use_kernel=False)), ("one lane", new)
+    del c2
+    # a real hop's candidates under a workset row past 48 KB of shared memory
+    big = build_workset(nbr, mask, seeds, max_hops=hops - 1, cap=13_000, use_kernel=False)
+    bcand = ops.hop_candidates(big.ids, nbr, mask)
+    assert torch.equal(ops.ws_member(big.ids, bcand, use_kernel=True),
+                       ops.ws_member(big.ids, bcand, use_kernel=False)), "C = 13,000"
+    del big, bcand
     # the whole third hop: mark arm (the kernel) against the sort arm, bitwise
     hop = lambda uk: ops.expand_hop(ws.ids, ws.dist, nbr, mask, hops, band=hops + 2,  # noqa: E731
                                     use_kernel=uk)
@@ -1353,6 +1418,7 @@ def main() -> int:
 
     for rec in records:
         print(json.dumps({"kernel": rec["name"], "card": card, **rec}))
+    print(json.dumps({"profiler_traces": PROFILER_TRACES}))
     print(json.dumps({"kernels": records}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

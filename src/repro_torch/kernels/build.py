@@ -130,6 +130,12 @@ def check_cuda(*tensors: torch.Tensor) -> None:
         raise RuntimeError(f"kernels are built for sm_90a; {dev} is sm_{cap[0]}{cap[1]}")
 
 
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (persistent grids size
+    themselves by it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def check_status(err: int, name: str) -> None:
     """Raise if a C entry point returned a CUDA error (a launch the card
     refused never runs, and no later synchronize would report it)."""

@@ -80,6 +80,60 @@ def test_bfs_frontier_kernel_matches_plain(dev, q, n, k, p):
     assert torch.equal(got, ops.frontier_hop(fr, nbr, msk, use_kernel=False))
 
 
+def _offset_view(x, offset):
+    """A contiguous copy of ``x`` that starts ``offset`` elements into its
+    allocation (an unaligned view)."""
+    flat = torch.zeros(x.numel() + 16, dtype=x.dtype, device=x.device)
+    view = flat[offset:offset + x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("case", ["citation_hub", "q33", "q64", "tail8", "offset8", "offset1",
+                                  "nbr_offset4", "random_sentinels", "full_lists", "wide_rows"])
+def test_bfs_frontier_variants_match_plain(dev, case):
+    """Each variant of the hop at its edges: a prefix-mask citation ELL with
+    a hub row (bulk), two query groups (Q = 33, 64), a last tile 8 bytes
+    past 16 (K = 24, N odd), mask views 8 and 1 bytes off 16-byte alignment
+    (rows, 8 and 1 slots a lane), ids 4 bytes off it (rows, 8 slots a
+    lane), random non-prefix masks with live sentinel slots, 2400-slot rows
+    (16-row tiles of 2-row slices), and rows too wide for the ring (rows
+    variant)."""
+    from repro_torch.graph import generators
+    from repro_torch.graph.ell import csr_to_ell
+    from repro_torch.kernels.bfs_frontier import kernel, ops
+
+    rng = np.random.default_rng(len(case))
+    q, offset = {"q33": 33, "q64": 64}.get(case, 4), {"offset8": 8, "offset1": 1}.get(case, 0)
+    if case in ("citation_hub", "q33", "q64", "offset8", "offset1", "nbr_offset4"):
+        ell = csr_to_ell(generators.citation_graph(20_000, avg_deg=8, seed=1), device="cuda")
+        nbr, msk = ell.nbr, ell.nbr_mask
+        deg = msk.sum(1)
+        assert deg.max().item() >= 20 * deg.float().mean().item()  # a hub row
+    else:
+        n, k, p = {"tail8": (3001, 24, 0.3), "random_sentinels": (5000, 64, 0.05),
+                   "full_lists": (300, 2400, 0.3), "wide_rows": (40, 120_000, 0.001)}[case]
+        nbr = torch.from_numpy(rng.integers(0, n + 1, (n, k)).astype(np.int32)).to(dev)
+        msk = torch.from_numpy(rng.random((n, k)) < p).to(dev)
+        nbr[::3, 0] = n
+        msk[::3, 0] = True
+    msk = _offset_view(msk, offset) if offset else msk
+    nbr = _offset_view(nbr, 1) if case == "nbr_offset4" else nbr  # 4 bytes off
+    n, k = nbr.shape
+    fr = torch.from_numpy(rng.random((q, n)) < 0.01).to(dev)
+    fr[-1] = True
+    plan = kernel.launch_plan(q, n, k, msk.data_ptr(), nbr.data_ptr(),
+                              torch.cuda.get_device_properties(dev).multi_processor_count)
+    want_variant = {"offset8": kernel.ROWS8, "offset1": kernel.ROWS, "nbr_offset4": kernel.ROWS8,
+                    "wide_rows": kernel.ROWS8}
+    assert plan.variant == want_variant.get(case, kernel.BULK), plan
+    before = kernel.launches.count
+    got = ops.frontier_hop(fr, nbr, msk)
+    torch.cuda.synchronize()
+    assert kernel.launches.count == before + 1 and kernel.last_plan == plan
+    assert torch.equal(got, ops.frontier_hop(fr, nbr, msk, use_kernel=False))
+
+
 def test_kernels_refuse_bad_inputs(dev):
     from repro_torch.kernels.bfs_frontier import ops as bops
     from repro_torch.kernels.topk_sim import ops as tops
@@ -123,6 +177,34 @@ def test_frontier_expand_kernel_matches_plain(dev, q, c, w):
     # a candidate row that starts off 16-byte alignment takes the scalar loads
     off = cand[:, 1:]
     assert torch.equal(ops.ws_member(ws, off), ops.ws_member(ws, off, use_kernel=False))
+
+
+@pytest.mark.parametrize("c", [256, 13_000])
+def test_frontier_expand_on_hop_candidates(dev, c):
+    """Real hop candidates (prefix masks: live neighbours, then sentinel
+    runs), as they are and with one lane inside a sentinel run changed to an
+    id of the workset and to one outside it; C = 13,000 puts the row past
+    48 KB of shared memory."""
+    from repro_torch.core.workset import build_workset
+    from repro_torch.graph import generators
+    from repro_torch.graph.ell import csr_to_ell
+    from repro_torch.kernels.frontier_expand import ops
+
+    n = 60_000
+    ell = csr_to_ell(generators.citation_graph(n, avg_deg=8, seed=2), device="cuda")
+    seeds = torch.from_numpy(np.random.default_rng(c).choice(n, (3, 3)).astype(np.int32)).to(dev)
+    ws = build_workset(ell.nbr, ell.nbr_mask, seeds, max_hops=2, cap=c, use_kernel=False)
+    cand = ops.hop_candidates(ws.ids, ell.nbr, ell.nbr_mask)
+    assert (cand == n).float().mean().item() > 0.9
+    assert torch.equal(ops.ws_member(ws.ids, cand), ops.ws_member(ws.ids, cand, use_kernel=False))
+    at = cand.shape[1] // 2 + 17
+    for new in (int(ws.ids[0, 0]), n - 1):
+        c2 = cand.clone()
+        c2[:, at - 40:at + 40] = n  # a sentinel run ...
+        c2[0, at] = new  # ... with one lane changed
+        got = ops.ws_member(ws.ids, c2)
+        assert torch.equal(got, ops.ws_member(ws.ids, c2, use_kernel=False))
+        assert bool(got[0, at]) == bool((ws.ids[0] == new).any())
 
 
 def test_frontier_expand_refuses_rows_past_shared_memory(dev):
