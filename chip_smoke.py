@@ -9,10 +9,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 2. build: compile the hand-written kernels (``src/repro_torch/csrc``);
 3. kernels: each kernel against its plain PyTorch version on the card, at the
    main path's shapes (the 169,343-node Arxiv-scale graph, D = 128, K = 1016,
-   a 2048-slot workset) and on edge cases, with times of the kernel, the
-   plain version and one library call (CUDA events over back-to-back calls,
-   ``time_ms``; the profiler's sum beside them as ``profiler_ms``), and the
-   least time the card could take (``bound_ms``);
+   a 2048-slot workset; ``topk_sim`` also at Q = 64, k = 32) and on edge
+   cases, with times of the kernel, the plain version and one library call
+   (CUDA events over back-to-back calls, ``time_ms``; the profiler's sum
+   beside them as ``profiler_ms``), and the least time the card could take
+   (``bound_ms``); the two scan kernels' launch plans on their own lines;
 4. strategies: one Q = 4 wave of each of bfs, dense, steiner and ppr on the
    same graph through the compact and the dense backend; rows that did not
    overflow must agree exactly;
@@ -73,6 +74,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 # H100 SXM data-sheet peaks (the roofline the bounds are taken against)
 HBM_BYTES_PER_S = 3.35e12
@@ -158,8 +160,8 @@ def bound(n_bytes: float, *work: tuple[float, float]) -> tuple[float, str]:
 # kernel-name fragments of the port's hand-written kernels in a trace (the
 # bfs_frontier pack kernel also zeroes the reach for the bulk hop)
 KERNEL_GROUPS = (("frontier_expand", "ws_mark_kernel"), ("bfs_frontier", "frontier_hop_"),
-                 ("bfs_frontier", "pack_frontier_kernel"), ("topk_sim", "topk_sim_tile_kernel"),
-                 ("ivf_scan", "ivf_scan_tile_kernel"), ("sorts", "ort"), ("sorts", "adix"))
+                 ("bfs_frontier", "pack_frontier_kernel"), ("topk_sim", "topk_sim_scan_kernel"),
+                 ("ivf_scan", "ivf_scan_kernel"), ("sorts", "ort"), ("sorts", "adix"))
 
 
 def split_kernels(by_name: dict) -> dict:
@@ -183,35 +185,78 @@ def query_seeds(emb: torch.Tensor, k: int = 3) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- kernels ----
+def no_sorts(kernels: dict, name: str) -> None:
+    """A scan op's trace holds its own kernels and no sort (its merge is a
+    hand kernel too)."""
+    sorts = [k_ for k_ in kernels if "ort" in k_ or "adix" in k_]
+    assert not sorts, f"{name} ran sort kernels: {sorts}"
+
+
 def check_topk_sim(emb: torch.Tensor, rng: np.random.Generator) -> dict:
+    """The kernel (through the op) against its plain version: the serving
+    wave (Q = 4, k = 3) and the IVF recall check's brute shape (Q = 64,
+    k = 32) on the Arxiv-scale index, and edge cases -- query groups, tiny
+    N, k at and past the 256-entry lists (the tree merge), ties across block
+    boundaries and in the last block, the plain-load variant.  Times at both
+    shapes, registers and spills."""
     from repro_torch.core.indexing import l2_normalize
-    from repro_torch.kernels.topk_sim import ops, ref
+    from repro_torch.kernels import build
+    from repro_torch.kernels.topk_sim import kernel, ops, ref
 
     dev = emb.device
     k = 3
     n, d = emb.shape
+    plans = {}  # the plans the wrapper passed to the C entry point
 
     def queries(q):
         rows = emb[torch.from_numpy(rng.choice(n, q)).to(dev)]
         noise = torch.from_numpy(rng.standard_normal((q, d)).astype(np.float32)).to(dev)
         return l2_normalize(rows + 0.05 * noise)
 
-    def compare(q, e, kk):
+    def compare(q, e, kk, name=None, variant=kernel.BULK, neighbours=False):
+        """Scores within 1e-5; ids exact in every row whose k-th score is
+        clear of the (k+1)-th.  With ``neighbours`` (the cases of k >= 32,
+        where two of a row's top k scores often lie within the two sums'
+        rounding of each other) such a row must hold the same ids, each at
+        the same place wherever its score is clear of both neighbours."""
         s_k, i_k = ops.topk_similarity(q, e, kk, use_kernel=True)
         torch.cuda.synchronize()
+        assert kernel.last_plan.variant == variant, (name, kernel.last_plan)
+        if name:
+            plans[name] = dataclasses.asdict(kernel.last_plan)
         s_p, i_p = ref.topk_similarity(q, e, min(kk + 1, e.shape[0]))
         err = (s_k - s_p[:, :kk]).abs().max().item()
         assert err <= 1e-5, f"topk_sim scores off by {err}"
-        if s_p.shape[1] > kk:  # ids exact where the k-th score is clear of the (k+1)-th
-            clear = (s_p[:, kk - 1] - s_p[:, kk]) > 1e-5
-            assert torch.equal(i_k[clear], i_p[clear, :kk]), "topk_sim ids differ"
+        clear = (s_p[:, kk - 1] - s_p[:, kk]) > 1e-5 if s_p.shape[1] > kk else \
+            torch.ones(q.shape[0], dtype=torch.bool, device=dev)
+        got, want = i_k[clear], i_p[clear, :kk]
+        if neighbours:
+            sw = s_p[clear, :kk]
+            gap = torch.minimum(F.pad(sw[:, :-1] - sw[:, 1:], (1, 0), value=1.0),
+                                F.pad(sw[:, :-1] - sw[:, 1:], (0, 1), value=1.0))
+            fixed = gap > 1e-5
+            assert torch.equal(got.sort(1).values, want.sort(1).values), f"{name}: id sets differ"
+            assert torch.equal(got[fixed], want[fixed]), f"{name}: ids differ"
         else:
-            assert torch.equal(i_k, i_p), "topk_sim ids differ"
+            bad = (got != want).nonzero()[:8].tolist()
+            assert not bad, f"{name}: ids differ at {bad}"
         return err
 
-    errs = [compare(queries(q), emb, k) for q in (1, 4)]
-    small = emb[:1000]  # N not a multiple of the 256-row tile
-    errs.append(compare(queries(5)[:, :d], small, 7))
+    errs = [compare(queries(q), emb, k, f"q{q}_k3") for q in (1, 4, 5, 9, 64)]
+    errs += [compare(queries(64), emb, 32, "q64_k32", neighbours=True),
+             compare(queries(2), emb, 256, "q2_k256", neighbours=True),
+             compare(queries(2), emb, 300, "q2_k300", neighbours=True)]
+    small = emb[:1000]  # N not a multiple of the 64-row tile, under one block's range
+    errs.append(compare(queries(5)[:, :d], small, 7, "n1000"))
+    errs += [compare(queries(3), emb[:100], 32, "n100_k32", neighbours=True),
+             compare(queries(2), emb[:1], 1, "n1"),
+             compare(queries(9), emb[:5000], 300, "n5000_k300", neighbours=True)]
+    # an emb[:, :3] view (D % 4 != 0) and a table 4 bytes off 16: plain loads
+    errs.append(compare(queries(5)[:, :3].contiguous(), emb[:, :3], 7, "d3_view", kernel.PLAIN))
+    flat = torch.zeros(n * d + 4, device=dev)
+    errs.append(compare(queries(4), flat[1:1 + n * d].view(n, d).copy_(emb), k, "unaligned",
+                        kernel.PLAIN))
+    del flat
     # duplicate rows: equal scores, ids lowest first, across tiles too
     dup = emb.clone()
     far = n - 343
@@ -219,19 +264,42 @@ def check_topk_sim(emb: torch.Tensor, rng: np.random.Generator) -> dict:
     s_k, i_k = ops.topk_similarity(dup[3:4].clone(), dup, 4, use_kernel=True)
     torch.cuda.synchronize()
     assert i_k[0, :4].tolist() == [3, 5, 700, far], f"tie order {i_k.tolist()}"
+    # ... on both sides of block-range boundaries and in the last block
+    plan = kernel.launch_plan(1, n, d, 8, dup.data_ptr(), build.sm_count(dev))
+    rows_t = kernel.tile_rows(d)
+    tiles = -(-n // rows_t)
+    cuts = [x * tiles // plan.grid_x * rows_t for x in range(1, plan.grid_x)]
+    rows = sorted({3, cuts[0] - 1, cuts[0], cuts[1] - 1, cuts[1], cuts[-1] - 1, cuts[-1], n - 1})
+    dup.copy_(emb)
+    dup[rows] = emb[3]
+    s_k, i_k = ops.topk_similarity(dup[3:4].clone(), dup, 8, use_kernel=True)
+    torch.cuda.synchronize()
+    assert i_k[0].tolist() == rows, f"tie order across blocks {i_k.tolist()} != {rows}"
+    del dup
 
-    q4 = queries(4)
-    run = lambda: ops.topk_similarity(q4, emb, k, use_kernel=True)  # noqa: E731
-    library = lambda: torch.topk(q4 @ emb.T, k)  # noqa: E731
-    profiler_ms, kernels = device_ms(run)
-    b_ms, b_by = bound(4 * (q4.numel() + emb.numel()) + 8 * 4 * k, (2 * 4 * n * d, FP32_FLOPS))
-    return {"name": "topk_sim", "route": "cuda", "source": "src/repro_torch/csrc/topk_sim.cu",
-            "replaces": "src/repro/kernels/topk_sim/kernel.py:80", "max_abs_err": max(errs),
+    log = build.build_log()
+    shapes = {}
+    for q, kq in ((4, k), (64, 32)):
+        qv = queries(q)
+        run = lambda: ops.topk_similarity(qv, emb, kq, use_kernel=True)  # noqa: E731
+        library = lambda: torch.topk(qv @ emb.T, kq)  # noqa: E731
+        profiler_ms, kernels = device_ms(run)
+        no_sorts(kernels, "topk_sim")
+        b_ms, b_by = bound(4 * (qv.numel() + emb.numel()) + 8 * q * kq,
+                           (2 * q * n * d, FP32_FLOPS))
+        shapes[q] = {
             "ms": time_ms(run),
-            "plain_ms": time_ms(lambda: ops.topk_similarity(q4, emb, k, use_kernel=False)),
+            "plain_ms": time_ms(lambda: ops.topk_similarity(qv, emb, kq, use_kernel=False)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(library),
             "profiler_ms": profiler_ms, "library_profiler_ms": device_ms(library)[0],
-            "device_kernels_ms": kernels, "shape": f"Q=4 N={n} D={d} k={k}"}
+            "device_kernels_ms": kernels, "shape": f"Q={q} N={n} D={d} k={kq}",
+            "ptxas": ptxas_report(log, f"topk_sim_scan_kernelILi{kernel.last_plan.qw}ELi0E"),
+            "merge_ptxas": ptxas_report(log, "topk_merge_kernel")}
+        plans[f"timed_q{q}"] = dataclasses.asdict(kernel.last_plan)
+    print(json.dumps({"topk_sim_launch_plans": plans}), flush=True)
+    return {"name": "topk_sim", "route": "cuda", "source": "src/repro_torch/csrc/topk_sim.cu",
+            "replaces": "src/repro/kernels/topk_sim/kernel.py:80", "max_abs_err": max(errs),
+            **shapes[4], "batch_shape": shapes[64]}
 
 
 def check_bfs_frontier(nbr: torch.Tensor, mask: torch.Tensor, rng: np.random.Generator) -> dict:
@@ -716,39 +784,51 @@ def check_ivf_scan(ivf, emb_raw: torch.Tensor, rng) -> dict:
     """The kernel (through the op) against both plain arms, bit for bit (the
     plain versions sum every dot product in the kernel's order): on the
     Arxiv-scale IVF index's candidates at Q = 4, k = 3 (a serving wave) and
-    Q = 64, k = 32, and on edge cases.  Times at both shapes."""
-    from repro_torch.kernels.ivf_scan import ops
+    Q = 64, k = 32, and on edge cases.  Times at both shapes, registers and
+    spills."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ivf_scan import kernel, ops
 
-    def compare(q, e, cand, cmask, k):
+    plans = {}  # the plans the wrapper passed to the C entry point
+
+    def compare(q, e, cand, cmask, k, name):
         s_k, i_k = ops.ivf_candidate_scan(q, e, cand, cmask, k, use_kernel=True)
         torch.cuda.synchronize()
+        plans[name] = dataclasses.asdict(kernel.last_plan)
         for tiled in (False, True):
             s_p, i_p = ops.ivf_candidate_scan(q, e, cand, cmask, k, tiled=tiled, use_kernel=False)
             assert torch.equal(s_k, s_p) and torch.equal(i_k, i_p), (tuple(cand.shape), k, tiled)
         return s_k, i_k
 
     # edge cases: a row with no live slot (real ids at masked slots), W < k,
-    # W not a multiple of c_blk or of the kernel's tile, duplicate rows and
-    # duplicate ids (exact ties), k past one tile
+    # W not a multiple of c_blk or of a run, duplicate rows and duplicate ids
+    # (exact ties), k past the 256-entry lists (the tree merge), W under one
+    # warp's run, a row whose live slots all lie in its last block
     n, d = 5000, 128
     e = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(DEV)
     e[2500:3000] = e[:500].clone()
-    for q, w, k in ((3, 1500, 7), (2, 5, 9), (4, 3000, 300), (1, 1, 1), (5, 2049, 32)):
+    for q, w, k in ((3, 1500, 7), (2, 5, 9), (4, 3000, 300), (1, 1, 1), (5, 2049, 32),
+                    (3, 20, 7), (4, 3000, 256), (3, 14_916, 12)):
         qv = torch.from_numpy(rng.standard_normal((q, d)).astype(np.float32)).to(DEV)
         cand = torch.from_numpy(rng.integers(0, n + 1, (q, w)).astype(np.int32)).to(DEV)
         cand[:, : w // 3] = cand[:, w // 3: 2 * (w // 3)]
         cmask = torch.from_numpy(rng.random((q, w)) < 0.5).to(DEV) & (cand < n)
         cmask[-1] = False
-        _, i_k = compare(qv, e, cand, cmask, k)
+        plan = kernel.launch_plan(q, w, min(k, w), build.sm_count(e.device))
+        if q > 2:  # row 0: live slots only past its last block's start
+            cmask[0, :(plan.grid_x - 1) * plan.span] = False
+        _, i_k = compare(qv, e, cand, cmask, k, f"q{q}_w{w}_k{k}")
         assert torch.equal(i_k[-1, :min(k, w)], cand[-1, :min(k, w)])
 
     emb = ivf.emb
     shapes = {}
+    log = build.build_log()
     for q, k in ((4, 3), (64, 32)):
         qn, cand, cmask = ivf_candidates(ivf, index_queries(emb_raw, q, rng))
-        compare(qn, emb, cand, cmask, k)
+        compare(qn, emb, cand, cmask, k, f"index_q{q}_k{k}")
         run = lambda: ops.ivf_candidate_scan(qn, emb, cand, cmask, k, use_kernel=True)  # noqa: E731
         profiler_ms, kernels = device_ms(run)
+        no_sorts(kernels, "ivf_scan")
         plain_ms = time_ms(
             lambda: ops.ivf_candidate_scan(qn, emb, cand, cmask, k, use_kernel=False),
             reps=3, batch=3)
@@ -767,10 +847,10 @@ def check_ivf_scan(ivf, emb_raw: torch.Tensor, rng) -> dict:
             "ms": time_ms(run), "plain_ms": plain_ms, "library_ms": time_ms(library),
             "bound_ms": b_ms, "bound_by": b_by, "profiler_ms": profiler_ms,
             "library_profiler_ms": device_ms(library)[0],
-            "tile_kernel_ms": sum(v for n_, v in kernels.items() if "ivf_scan_tile" in n_),
             "device_kernels_ms": kernels, "live_rows": live,
             "all_slots_bound_ms": 1e3 * q * w * (4 * d + 5) / HBM_BYTES_PER_S,
-            "shape": f"Q={q} W={w} D={d} k={k}"}
+            "shape": f"Q={q} W={w} D={d} k={k}", "ptxas": ptxas_report(log, "ivf_scan_kernel")}
+    print(json.dumps({"ivf_scan_launch_plans": plans}), flush=True)
     serve, batch = shapes[(4, 3)], shapes[(64, 32)]
     return {"name": "ivf_scan", "route": "cuda", "source": "src/repro_torch/csrc/ivf_scan.cu",
             "replaces": "src/repro/kernels/ivf_scan/kernel.py:38", "max_abs_err": 0.0,

@@ -4,8 +4,9 @@ Route: ``nvcc`` by hand into a library with a plain C interface, loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds, not minutes).  One
 ``nvcc`` per source, all started together, then one link.  The library lands
 in ``build/kernels/`` at the repository root (listed in ``.gitignore``),
-named by a hash of the sources and flags, so an edited source never loads a
-stale library.  Nothing here runs at import time.
+named by a hash of the sources, the headers they include and the flags, so
+an edited source or header never loads a stale library.  Nothing here runs
+at import time.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("topk_sim.cu", "bfs_frontier.cu", "frontier_expand.cu", "flash_attn.cu", "ell_spmm.cu",
            "ivf_scan.cu")
+HEADERS = ("topk_merge.cuh",)  # included by sources; part of the build's hash
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -54,7 +56,7 @@ def _nvcc() -> str:
 
 def _tag() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 

@@ -3,9 +3,9 @@
 A CPU tensor takes a plain arm (``ref.py``): the dense gather for narrow
 candidate sets and the tiled loop from two c_blk tiles up, the reference's
 heuristic.  A CUDA tensor launches the hand-written kernel at every width
-(both arms compute the same function; the kernel tiles by itself) and
-merges its per-tile lists here; if the kernel cannot be built or launched,
-that raises.  ``use_kernel=False`` forces the plain arms on any device.
+(both arms compute the same function; the kernel scans and merges in one
+launch); if the kernel cannot be built or launched, that raises.
+``use_kernel=False`` forces the plain arms on any device.
 """
 from __future__ import annotations
 
@@ -15,21 +15,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ivf_scan import kernel, ref
-from repro_torch.kernels.topk_sim.ref import stable_topk
 
 
 def _ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m
-
-
-def _kernel_scan(q, emb, cand, cmask, k: int):
-    s_blk, p_blk = kernel.ivf_scan_tiles(q, emb, cand, cmask, min(k, kernel.TILE))
-    # tiles are in position order and each list is (score desc, position
-    # asc), so a stable sort of the flattened lists is the (score, position)
-    # order over all candidates
-    top_s, sel = stable_topk(s_blk.reshape(q.shape[0], -1), k)
-    pos = torch.gather(p_blk.reshape(q.shape[0], -1), 1, sel)
-    return top_s, torch.gather(cand, 1, pos.long())
 
 
 def ivf_candidate_scan(
@@ -52,8 +41,8 @@ def ivf_candidate_scan(
     if use_kernel is None:
         use_kernel = q.is_cuda
     if use_kernel:
-        s, i = _kernel_scan(q.float().contiguous(), emb.float().contiguous(),
-                            cand.to(torch.int32).contiguous(), cmask.contiguous(), k_eff)
+        s, i = kernel.ivf_scan_kernel(q.float().contiguous(), emb.float().contiguous(),
+                                      cand.to(torch.int32).contiguous(), cmask.contiguous(), k_eff)
     else:
         if tiled is None:
             tiled = w >= 2 * c_blk  # at least two candidate tiles

@@ -1,9 +1,7 @@
 """Plain PyTorch versions of fused similarity + top-k node retrieval.
 
-``topk_similarity`` is the function the kernel path computes; the CPU takes
-it, and the card is checked against it.  ``topk_sim_tiles`` is the kernel's
-own output (per-tile top-k lists) in plain PyTorch, so the tile merge in
-``ops.py`` is testable without a card.
+``topk_similarity`` is the function the kernel computes (scan and merge in
+one launch); the CPU takes it, and the card is checked against it.
 """
 from __future__ import annotations
 
@@ -31,24 +29,3 @@ def topk_similarity(q: torch.Tensor, emb: torch.Tensor, k: int):
     scores = q.float() @ emb.float().T
     s, i = stable_topk(scores, min(k, emb.shape[0]))
     return s, i.to(torch.int32)
-
-
-def topk_sim_tiles(q: torch.Tensor, emb: torch.Tensor, k: int, c_blk: int):
-    """Per-tile top-k of the kernel: (Q, ceil(N/c_blk), k) scores and global
-    ids; rows past N score -inf.  Within a tile, a winner is masked to -inf
-    before the next round (so a tile with fewer than k rows repeats its
-    lowest -inf column, as the TPU kernel does)."""
-    n = emb.shape[0]
-    n_tiles = -(-n // c_blk)
-    scores = torch.full((q.shape[0], n_tiles * c_blk), float("-inf"),
-                        dtype=torch.float32, device=q.device)
-    scores[:, :n] = q.float() @ emb.float().T
-    tiles = scores.view(q.shape[0], n_tiles, c_blk).clone()
-    s_out, i_out = [], []
-    for _ in range(k):
-        s, a = stable_topk(tiles, 1)
-        s_out.append(s)
-        i_out.append(a)
-        tiles.scatter_(-1, a, float("-inf"))
-    base = torch.arange(n_tiles, device=q.device)[None, :, None] * c_blk
-    return torch.cat(s_out, -1), (torch.cat(i_out, -1) + base).to(torch.int32)

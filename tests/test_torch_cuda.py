@@ -3,8 +3,9 @@ shapes the main path does not reach (query groups, odd widths, tiny N,
 ragged candidate rows, worksets of one id or of more than 48 KB; flash
 attention over head dims, GQA ratios, windows, both dtypes and ragged S;
 ELL aggregation over odd widths and sentinel ids; the IVF scan over ragged,
-narrow and tied candidate sets), and the index kinds and an IVF serve on the
-card against the CPU.  Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere.
+narrow and tied candidate sets; both scan kernels' variants, merges and
+workspace), and the index kinds and an IVF serve on the card against the
+CPU.  Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere.
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -37,8 +38,15 @@ def _unit(rng, shape, dev):
 
 
 @pytest.mark.parametrize("q,n,d,k", [(1, 1, 8, 1), (3, 255, 40, 7), (9, 3000, 128, 3),
-                                     (20, 5000, 96, 64), (4, 700, 1024, 300)])
+                                     (20, 5000, 96, 64), (4, 700, 1024, 300),
+                                     (5, 1000, 128, 32), (64, 20_000, 128, 32), (1, 1000, 128, 256),
+                                     (2, 1000, 128, 300), (65, 3000, 64, 5), (9, 2000, 1030, 3),
+                                     (3, 40, 16, 40), (1, 169, 128, 169)])
 def test_topk_sim_kernel_matches_plain(dev, q, n, d, k):
+    """Query groups (Q = 9, 64, 65), N = 1 and N under one block's range,
+    k at and past the 256-entry lists (the tree merge), k = N, rows of two
+    column chunks (D = 1030, the plain variant): one launch, the plan the
+    wrapper computed."""
     from repro_torch.kernels.topk_sim import kernel, ops
 
     rng = np.random.default_rng(n)
@@ -47,9 +55,82 @@ def test_topk_sim_kernel_matches_plain(dev, q, n, d, k):
     s_k, i_k = ops.topk_similarity(qv, ev, k)
     torch.cuda.synchronize()
     assert kernel.launches.count == before + 1
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert kernel.last_plan == kernel.launch_plan(q, n, d, k, ev.data_ptr(), sm)
     s_p, i_p = ops.topk_similarity(qv, ev, k, use_kernel=False)
     assert (s_k - s_p).abs().max().item() <= 1e-5
     assert torch.equal(i_k, i_p)
+
+
+@pytest.mark.parametrize("case", ["odd_width_view", "unaligned", "block_boundaries"])
+def test_topk_sim_variants_and_block_boundaries(dev, case):
+    """An emb[:, :3] view and a table 4 bytes off 16-byte alignment take the
+    plain-load variant; copies of one row on both sides of every block
+    boundary and in the last block come out lowest id first."""
+    from repro_torch.kernels.topk_sim import kernel, ops
+
+    rng = np.random.default_rng(len(case))
+    n = 20_000
+    ev = _unit(rng, (n, 128), dev)
+    qv = _unit(rng, (5, 128), dev)
+    variant = kernel.PLAIN
+    if case == "odd_width_view":
+        ev, qv = ev[:, :3], qv[:, :3]
+    elif case == "unaligned":
+        flat = torch.zeros(n * 128 + 4, device=dev)
+        ev = flat[1:1 + n * 128].view(n, 128).copy_(ev)
+    else:
+        variant = kernel.BULK
+        sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = kernel.launch_plan(5, n, 128, 8, ev.data_ptr(), sm)
+        tiles = -(-n // 64)
+        cuts = [x * tiles // plan.grid_x * 64 for x in range(1, plan.grid_x)]
+        dup = sorted({0, n - 1, *cuts[:4], *[c - 1 for c in cuts[:4]]})
+        ev[dup] = ev[dup[0]].clone()
+        qv[0] = ev[dup[0]]
+    s, i = ops.topk_similarity(qv, ev, 8)
+    torch.cuda.synchronize()
+    assert kernel.last_plan.variant == variant
+    s_p, i_p = ops.topk_similarity(qv, ev, 8, use_kernel=False)
+    assert (s - s_p).abs().max().item() <= 1e-5 and torch.equal(i, i_p)
+    if case == "block_boundaries":
+        assert i[0].tolist() == dup[:8]
+
+
+@pytest.mark.parametrize("op", ["topk_sim", "ivf_scan"])
+def test_scan_kernels_reset_their_workspace(dev, op):
+    """Two calls in a row, and calls on two streams one after the other,
+    give identical results (and a call at another Q between them changes
+    nothing); ivf_scan's tickets are left zero."""
+    from repro_torch.kernels import topk_merge
+    from repro_torch.kernels.ivf_scan import ops as iops
+    from repro_torch.kernels.topk_sim import ops as tops
+
+    rng = np.random.default_rng(5)
+    ev = _unit(rng, (30_000, 128), dev)
+    qv = _unit(rng, (6, 128), dev)
+    cand = torch.from_numpy(rng.integers(0, 30_001, (6, 5000)).astype(np.int32)).to(dev)
+    cmask = cand < 30_000
+
+    def call(q=qv):
+        if op == "topk_sim":
+            return tops.topk_similarity(q, ev, 10)
+        return iops.ivf_candidate_scan(q, ev, cand[:q.shape[0]], cmask[:q.shape[0]], 10)
+
+    first = call()
+    second = call()
+    call(qv[:2])
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        third = call()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    fourth = call()
+    torch.cuda.synchronize()
+    for other in (second, third, fourth):
+        assert torch.equal(first[0], other[0]) and torch.equal(first[1], other[1])
+    for ws in topk_merge._workspaces.values():
+        assert not ws.any()
 
 
 def test_topk_sim_ties_lowest_id_first(dev):
@@ -576,10 +657,13 @@ def test_ell_spmm_kernel_matches_plain(dev, q, m, k, d, dtype):
 
 
 # ------------------------------------------------------------ ivf_scan ----
-IVF_CASES = [  # q, n, d, w, k, integer data: ragged W, W < tile, k > tile, narrow W < k
+IVF_CASES = [  # q, n, d, w, k, integer data: ragged W, W < a run, k past the 256-entry
+    # lists (the tree merge), narrow W < k, k = W
     (4, 5000, 128, 18_112, 3, False), (64, 5000, 128, 18_112, 32, False),
     (6, 400, 16, 899, 23, True), (3, 200, 8, 300, 6, True), (2, 300, 40, 700, 300, False),
-    (5, 100, 70, 5, 9, False), (1, 1, 4, 1, 1, False)]
+    (5, 100, 70, 5, 9, False), (1, 1, 4, 1, 1, False), (3, 300, 128, 20, 7, True),
+    (2, 400, 128, 3000, 256, False), (2, 400, 128, 3000, 300, True), (1, 50, 8, 600, 600, True),
+    (9, 1000, 130, 2000, 12, False)]
 
 
 @pytest.mark.parametrize("q,n,d,w,k,integer", IVF_CASES)
@@ -599,10 +683,14 @@ def test_ivf_scan_kernel_matches_plain(dev, q, n, d, w, k, integer):
     cand[:, : w // 3] = cand[:, w // 3: 2 * (w // 3)]  # duplicate ids
     cmask = torch.from_numpy(rng.random((q, w)) < 0.6).to(dev) & (cand < n)
     cmask[-1] = False
+    if q > 2:  # a row whose live slots all lie in its last block's last run
+        cmask[0, :max(0, w - 20)] = False
     before = kernel.launches.count
     s_k, i_k = ops.ivf_candidate_scan(qv, emb, cand, cmask, k)
     torch.cuda.synchronize()
     assert kernel.launches.count == before + 1
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert kernel.last_plan == kernel.launch_plan(q, w, min(k, w), sm)
     assert s_k.shape == i_k.shape == (q, k)
     for tiled in (False, True):
         s_p, i_p = ops.ivf_candidate_scan(qv, emb, cand, cmask, k, tiled=tiled, c_blk=256,
@@ -622,9 +710,9 @@ def test_new_kernels_refuse_bad_inputs(dev):
     q = torch.zeros((1, 4), device=dev)
     cand = torch.zeros((1, 8), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="k="):
-        ikernel.ivf_scan_tiles(q, torch.zeros((5, 4), device=dev), cand, cand.bool(), 9)
+        ikernel.ivf_scan_kernel(q, torch.zeros((5, 4), device=dev), cand, cand.bool(), 9)
     with pytest.raises(ValueError, match="int32"):
-        ikernel.ivf_scan_tiles(q, torch.zeros((5, 4), device=dev), cand.long(), cand.bool(), 1)
+        ikernel.ivf_scan_kernel(q, torch.zeros((5, 4), device=dev), cand.long(), cand.bool(), 1)
 
 
 # ---------------------------------------------------- the index kinds ----

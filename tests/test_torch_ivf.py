@@ -348,3 +348,197 @@ def test_rag_pipeline_with_ivf_matches_reference():
     ids_b, mask_b = pipe.tokenize(texts, b.sub)
     np.testing.assert_array_equal(ids_a, ids_b)
     np.testing.assert_array_equal(mask_a, mask_b)
+
+
+# ------------------------------------------- the CUDA kernel's plan and walk ----
+# A NumPy emulation of csrc/ivf_scan.cu (and the merge of
+# csrc/topk_merge.cuh: tests/_topk_emulation.py): each block's
+# slot range, each warp's runs of 32 slots, the masked-slot fillers while a
+# list ends in -inf, the live slots in batches of 8 scored in the kernel's
+# order, the running lists with their entry threshold, then the tree merge
+# of the query's lists; ids read from cand at the winning positions.
+from repro_torch.kernels import topk_merge  # noqa: E402
+from repro_torch.kernels.ivf_scan import kernel as ivf_kernel  # noqa: E402
+
+from _topk_emulation import PAD, insert, key, merge_tree  # noqa: E402
+
+
+def _kernel_dot(q, ce):
+    """q (D,) . ce (..., D) in the kernel's order, in float32 arithmetic:
+    lane l sums its rounded products of columns l, l + 32, ... from +0, then
+    the halving tree."""
+    d = q.shape[0]
+    dp = -(-d // 32) * 32
+    p = np.zeros(ce.shape[:-1] + (dp,), np.float32)
+    p[..., :d] = ce * q
+    acc = np.zeros(ce.shape[:-1] + (32,), np.float32)
+    for m in range(dp // 32):
+        acc = acc + p[..., 32 * m:32 * (m + 1)]
+    for o in (16, 8, 4, 2, 1):
+        acc = acc[..., :o] + acc[..., o:2 * o]
+    return acc[..., 0]
+
+
+def _emulate_ivf(q, emb, cand, cmask, k, plan, stats=None):
+    stats = {} if stats is None else stats
+    qn, w = cand.shape
+    n = emb.shape[0]
+    large = k > topk_merge.CAP
+    assert plan.kk == (topk_merge.CAP if large else k) and 1 <= k <= w
+    assert plan.span % ivf_kernel.RUN == 0 and plan.grid_x == -(-w // plan.span)
+    out_s = np.full((qn, k), np.nan, np.float32)
+    out_i = np.full((qn, k), -1, np.int64)
+    for qi in range(qn):
+        scores = _kernel_dot(q[qi], emb[np.clip(cand[qi], 0, n - 1)])
+        seen = np.zeros(w, np.int64)
+        lists = []  # block x's warp wp at x * 8 + wp
+        for x in range(plan.grid_x):
+            s0, s1 = x * plan.span, min(w, (x + 1) * plan.span)
+            for wp in range(ivf_kernel.WARPS):
+                lst, covered = [PAD] * plan.kk, 0
+                for base in range(s0 + ivf_kernel.RUN * wp, s1, ivf_kernel.RUN * ivf_kernel.WARPS):
+                    p = np.arange(base, min(base + ivf_kernel.RUN, s1))
+                    seen[p] += 1
+                    covered += len(p)
+                    live = cmask[qi, p]
+                    if lst[-1][1] == -np.inf:  # fillers, in lane order
+                        for pos in p[~live]:
+                            if pos < lst[-1][2]:
+                                insert(lst, (key(-np.inf, pos), np.float32(-np.inf), pos), stats)
+                    lp = p[live]
+                    for b0 in range(0, len(lp), 8):  # gathered 8 rows at a time
+                        for pos in lp[b0:b0 + 8]:
+                            e = (key(scores[pos], pos), scores[pos], pos)
+                            if e[0] > lst[-1][0]:
+                                insert(lst, e, stats)
+                if large:
+                    assert covered <= topk_merge.CAP  # the list keeps all its slots
+                lists.append(lst)
+        assert (seen == 1).all()
+        fin = merge_tree(lists, k, plan.stride)
+        out_s[qi] = [e[1] for e in fin]
+        out_i[qi] = [cand[qi, e[2]] for e in fin]
+    return out_s, out_i
+
+
+def _hold_ivf(q, emb, cand, cmask, k, sm=132, integer=True):
+    """The emulation against both port arms (bit for bit: the same order),
+    and the reference's tiled and dense arms: bit for bit on integer data,
+    else within 1e-6 with ids exact where neighbouring scores are clear."""
+    plan = ivf_kernel.launch_plan(q.shape[0], cand.shape[1], k, sm)
+    stats = {}
+    s, i = _emulate_ivf(q, emb, cand, cmask, k, plan, stats)
+    for ps, pi in _port_arms(q, emb, cand, cmask, k, 128):
+        np.testing.assert_array_equal(_bits(s), _bits(ps))
+        np.testing.assert_array_equal(i, pi)
+    want = _reference_arms(q, emb, cand, cmask, k, 128)
+    for ws, wi in want:
+        if integer:
+            np.testing.assert_array_equal(_bits(s), _bits(ws))
+            np.testing.assert_array_equal(i, wi)
+        else:
+            np.testing.assert_allclose(s, ws, rtol=1e-6, atol=1e-6)
+            gap_prev = np.abs(np.diff(ws, axis=1, prepend=np.inf))
+            gap_next = np.abs(np.diff(ws, axis=1, append=-np.inf))
+            clear = np.minimum(gap_prev, gap_next) > 1e-4
+            np.testing.assert_array_equal(i[clear], wi[clear])
+    return plan, stats
+
+
+def test_ivf_launch_plan_main_path():
+    """The IVF wave (Q = 4, W = 14,916 slots, k = 3) on an H100 (132 SMs):
+    59 blocks of 256 slots a query, a run a warp; Q = 64, k = 32: 5 blocks of
+    3,072 slots a query."""
+    plan = ivf_kernel.launch_plan(4, 14_916, 3, 132)
+    assert plan == ivf_kernel.IvfPlan(3, 256, 59, 59 * 8 * 3)
+    assert ivf_kernel.launch_plan(64, 14_916, 32, 132) == ivf_kernel.IvfPlan(
+        32, 3_072, 5, 5 * 8 * 32)
+    # the last block stages the merge: two copies of the query's lists
+    assert ivf_kernel.ivf_smem_bytes(128, 3, plan.stride) == 512 + 16 * 59 * 8 * 3
+
+
+def test_ivf_layout_constants_match_cuda_source():
+    import re
+    from pathlib import Path
+
+    src = (Path(ivf_kernel.__file__).parents[2] / "csrc" / "ivf_scan.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(consts["kWarps"]) == ivf_kernel.WARPS and int(consts["kRun"]) == ivf_kernel.RUN
+    assert int(consts["kRows"]) == 8
+
+
+@pytest.mark.parametrize("q,w,k", [(4, 14_916, 3), (64, 14_916, 32), (1, 1, 1), (2, 5, 5),
+                                   (3, 31, 7), (5, 2049, 32), (4, 3000, 300), (2, 700, 300),
+                                   (1, 20_000, 256), (1, 20_000, 257), (7, 899, 23),
+                                   (300, 100, 9), (2, 4096, 4096), (9, 33, 33)])
+def test_ivf_launch_plan_covers_every_slot_once(q, w, k):
+    """Every slot in exactly one run of one warp of one block; past k = 256
+    no warp's list spans more than 256 slots; the scratch holds every merge
+    level; about two blocks an SM."""
+    for sm in (1, 3, 132):
+        plan = ivf_kernel.launch_plan(q, w, k, sm)
+        assert plan.kk == min(k, 256) and plan.span % 256 == 0
+        assert plan.grid_x == -(-w // plan.span)
+        seen = np.zeros(w, np.int64)
+        for x in range(plan.grid_x):
+            s0, s1 = x * plan.span, min(w, (x + 1) * plan.span)
+            assert s1 > s0
+            for wp in range(8):
+                runs = range(s0 + 32 * wp, s1, 256)
+                for base in runs:
+                    seen[base:min(base + 32, s1)] += 1
+                if k > 256:
+                    assert 32 * len(runs) <= 256
+        assert (seen == 1).all()
+        assert plan.stride == topk_merge.merge_stride(plan.grid_x * 8, plan.kk, k)
+        assert ivf_kernel.ivf_smem_bytes(128, plan.kk, plan.stride) <= ivf_kernel.SMEM_PER_BLOCK
+        if k <= 256:
+            assert plan.grid_x * q <= max(2 * sm + q, q * -(-w // 32))
+    with pytest.raises(ValueError, match="k="):
+        ivf_kernel.launch_plan(1, 5, 6, 132)
+
+
+def _ivf_case(seed, qn, n, d, w, integer, live=0.6):
+    rng = np.random.default_rng(seed)
+    draw = (lambda s: rng.integers(-3, 4, s)) if integer else rng.standard_normal
+    emb = draw((n, d)).astype(np.float32)
+    emb[n // 2:n // 2 + n // 8] = emb[:n // 8]  # duplicate rows
+    q = draw((qn, d)).astype(np.float32)
+    cand = rng.integers(0, n + 1, (qn, w)).astype(np.int32)
+    cand[:, :w // 3] = cand[:, w // 3:2 * (w // 3)]  # duplicate ids: exact ties
+    cmask = (rng.random((qn, w)) < live) & (cand < n)
+    return q, emb, cand, cmask
+
+
+@pytest.mark.parametrize("qn,n,d,w,k,sm,integer", [
+    (4, 400, 16, 1500, 3, 132, True),  # a run a warp, many blocks
+    (4, 400, 16, 1500, 3, 1, True),  # few blocks: each warp walks many runs
+    (3, 300, 40, 900, 23, 4, False),
+    (2, 300, 70, 700, 256, 132, True),  # k at the list capacity
+    (2, 300, 24, 700, 300, 132, True),  # k past it: the tree merge
+    (1, 50, 8, 300, 300, 2, True),  # k = W past the capacity
+    (3, 100, 8, 20, 9, 132, True),  # W smaller than a warp's run
+    (2, 100, 130, 64, 5, 132, False),  # two 128-column blocks a row
+])
+def test_emulated_ivf_scan_matches_reference(qn, n, d, w, k, sm, integer):
+    q, emb, cand, cmask = _ivf_case(qn * w + k, qn, n, d, w, integer)
+    cmask[-1] = False  # a row with no live slot: raw ids of its first slots
+    _hold_ivf(q, emb, cand, cmask, k, sm=sm, integer=integer)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_emulated_ivf_live_slots_in_the_last_block_only(seed):
+    """A row whose live slots all lie in its last block and the tail of its
+    last run, another with fewer live slots than k: the masked fillers of
+    the earlier blocks lead the -inf tail."""
+    q, emb, cand, cmask = _ivf_case(40 + seed, 3, 200, 8, 1000, True)
+    plan = ivf_kernel.launch_plan(3, 1000, 12, 132)
+    assert plan.grid_x > 2
+    cmask[0, :(plan.grid_x - 1) * plan.span] = False
+    cmask[1] = False
+    cmask[1, -5:] = cand[1, -5:] < 200
+    _hold_ivf(q, emb, cand, cmask, 12)
+    s, i = _emulate_ivf(q, emb, cand, cmask, 12, plan)
+    nl = int(cmask[1].sum())
+    assert np.isneginf(s[1, nl:]).all()
+    np.testing.assert_array_equal(i[1, nl:], cand[1][~cmask[1]][:12 - nl])
