@@ -29,8 +29,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 6. ell_spmm: the ``ell_aggregate`` op driven at the regime of the TPU
    kernel it replaces (Q = 64, M = 1024, K = 32 and Q = 32, M = 256, K = 16,
    D = 128; its launches counted), and the kernel against its plain version
-   there and on edge cases (D = 48 and 200, M = 1000, K = 1, sentinel and
-   out-of-range ids with the mask set, all-masked rows, bf16), bit for bit;
+   there and on edge cases (D = 48 and 200, M = 1000, K = 1, M = 3000 with
+   16-column slabs, M = 5000 and 8000 with the l2 variant, sentinel
+   and out-of-range ids with the mask set, all-masked rows, bf16, features
+   not 16-byte aligned), bit for bit; the slab widths timed against each
+   other and the narrower slabs against the l2 variant, the slab kernel's
+   registers (no spills allowed) and its plans on lines of their own;
 7. indexes: the IVF index (64 clusters, nprobe 4) built twice on the card
    from the 169,343-node graph's features (the builds must match bit for
    bit); the ``ivf_scan`` kernel against both plain arms on that index's
@@ -679,7 +683,14 @@ def profile_decode(engine, steps: int = 5) -> dict:
 
 # ------------------------------------------------------------ ell_spmm ----
 ELL_SHAPES = ((64, 1024, 32, 128), (32, 256, 16, 128))  # (Q, M, K, D)
-ELL_EDGES = ((3, 100, 12, 48), (2, 50, 4, 200), (4, 1000, 40, 64), (5, 17, 1, 33), (3, 1, 3, 8))
+# partial last slabs (D = 48, 200, 33), K past 32 slots, M = 1, K = 1, and M
+# where only 16-column slabs fit, or none (the l2 variant)
+ELL_EDGES = ((3, 100, 12, 48), (2, 50, 4, 200), (4, 1000, 40, 64), (5, 17, 1, 33), (3, 1, 3, 8),
+             (3, 3000, 24, 128), (2, 5000, 16, 40), (2, 8000, 16, 128))
+ELL_WIDTHS = (32, 16)  # fp32 slab widths timed against each other at the first regime shape
+# M where only a 16-column fp32 slab fits (Q, K, D of the first regime
+# shape): that slab timed against the l2 variant
+ELL_NARROW = ((3000, 16),)
 
 
 def ell_inputs(rng, q, m, k, d, dtype=torch.float32):
@@ -716,24 +727,53 @@ def ell_path(rng) -> int:
 def check_ell_spmm(rng) -> dict:
     """The kernel against its plain version, bit for bit (both add the same
     fp32 values in slot order and round once), at the regime shapes and on
-    edge cases; times of the kernel, the plain version and CSR
-    ``torch.sparse.mm`` at both regime shapes."""
-    from repro_torch.kernels.ell_spmm import ops
+    edge cases (every slab width and the l2 variant, bf16, features not
+    16-byte aligned); times of the kernel, the plain version and CSR
+    ``torch.sparse.mm`` at both regime shapes, of each slab width at the
+    first, and of the narrower slabs against the l2 variant where only they
+    fit; the slab kernel's registers and spills (none allowed); the plans,
+    with the blocks an SM holds, on a line of their own."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ell_spmm import kernel, ops
 
-    cases = [(s, torch.float32) for s in ELL_SHAPES + ELL_EDGES]
-    cases += [((8, 256, 16, 128), torch.bfloat16), ((2, 50, 4, 200), torch.bfloat16)]
-    for shape, dtype in cases:
-        feat, nbr, msk = ell_inputs(rng, *shape, dtype=dtype)
+    plans = {}  # the plans the wrapper passed to the C entry point
+
+    def compare(feat, nbr, msk, name):
         got = ops.ell_aggregate(feat, nbr, msk, use_kernel=True)
         torch.cuda.synchronize()
-        assert torch.equal(got, ops.ell_aggregate(feat, nbr, msk, use_kernel=False)), (shape, dtype)
-        assert not got[-1].any() and not got[:, ::11].any(), (shape, dtype)
+        plans[name] = dataclasses.asdict(kernel.last_plan)
+        assert torch.equal(got, ops.ell_aggregate(feat, nbr, msk, use_kernel=False)), name
+        assert not got[-1].any() and not got[:, ::11].any(), name
 
-    timed = []
+    cases = [(s, torch.float32) for s in ELL_SHAPES + ELL_EDGES]
+    cases += [((8, 256, 16, 128), torch.bfloat16), ((2, 50, 4, 200), torch.bfloat16),
+              ((2, 3000, 8, 96), torch.bfloat16), ((2, 7000, 8, 128), torch.bfloat16)]
+    for shape, dtype in cases:
+        compare(*ell_inputs(rng, *shape, dtype=dtype), f"{shape} {str(dtype)[6:]}")
+    for dtype in (torch.float32, torch.bfloat16):  # slab staged by element copies
+        feat, nbr, msk = ell_inputs(rng, 3, 300, 12, 128, dtype=dtype)
+        unaligned = torch.empty(feat.numel() + 1, dtype=dtype, device=DEV)[1:].view_as(feat)
+        compare(unaligned.copy_(feat), nbr, msk, f"(3, 300, 12, 128) {str(dtype)[6:]} unaligned")
+    assert plans["(2, 8000, 16, 128) float32"]["variant"] == kernel.L2
+    assert plans["(2, 7000, 8, 128) bfloat16"]["variant"] == kernel.L2
+    assert [plans[f"{s} float32"]["cols"]
+            for s in ((3, 3000, 24, 128), (2, 5000, 16, 40))] == [16, 0]
+
+    def by_plan(feat, nbr, msk, cols, want) -> dict:
+        """The kernel with ``cols`` slab columns forced (0: the l2 variant),
+        checked against ``want`` and timed."""
+        q, m, d = feat.shape
+        forced = kernel.ell_plan(q, m, nbr.shape[2], d, feat.dtype, cols=cols)
+        run = lambda: kernel.ell_aggregate_kernel(feat, nbr, msk, plan=forced)  # noqa: E731
+        assert torch.equal(run(), want), (q, m, d, cols)
+        return {"profiler_ms": device_ms(run)[0], "ms": time_ms(run), "plan": str(forced)}
+
+    timed, widths = [], {}
     for q, m, k, d in ELL_SHAPES:
         feat, nbr, msk = ell_inputs(rng, q, m, k, d)
         run = lambda: ops.ell_aggregate(feat, nbr, msk, use_kernel=True)  # noqa: E731
         profiler_ms, kernels = device_ms(run)
+        plan = kernel.last_plan
         plain_ms = time_ms(lambda: ops.ell_aggregate(feat, nbr, msk, use_kernel=False),
                            reps=3, batch=3)
         # library yardstick: one block-diagonal (Q*M) x (Q*(M+1)) CSR matrix
@@ -751,16 +791,45 @@ def check_ell_spmm(rng) -> dict:
         n_live = int(live.sum())
         # each input read once, the output written once; the adds at the fp32 rate
         b_ms, b_by = bound(2 * 4 * q * m * d + 5 * q * m * k, (n_live * d, FP32_FLOPS))
+        shape = f"Q={q} M={m} K={k} D={d} fp32"
         timed.append({"ms": time_ms(run), "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                       "library_ms": time_ms(library), "library_max_abs_diff": lib_err,
                       "profiler_ms": profiler_ms, "library_profiler_ms": device_ms(library)[0],
                       "device_kernels_ms": kernels, "live_slots": n_live,
                       "gather_bytes_ms": 1e3 * 4 * n_live * d / HBM_BYTES_PER_S,
-                      "shape": f"Q={q} M={m} K={k} D={d} fp32"})
+                      "shape": shape})
+        # the plan and, from the card, the blocks of it an SM holds (not measured)
+        plans[f"timed {shape}"] = {**dataclasses.asdict(plan), "threads_per_block": kernel.THREADS,
+                                   "blocks_per_sm": kernel.slab_occupancy(plan, feat.dtype)}
+        if not widths:  # the slab widths against each other, at the first shape
+            want = run()
+            widths[shape] = {f"{cols} columns": by_plan(feat, nbr, msk, cols, want)
+                             for cols in ELL_WIDTHS}
         del feat, nbr, msk, adj, dense
+    q, k, d = ELL_SHAPES[0][0], ELL_SHAPES[0][2], ELL_SHAPES[0][3]
+    for m, cols in ELL_NARROW:  # the narrower slabs against the l2 variant
+        feat, nbr, msk = ell_inputs(rng, q, m, k, d)
+        assert kernel.ell_plan(q, m, k, d, feat.dtype).cols == cols, (m, cols)
+        want = ops.ell_aggregate(feat, nbr, msk, use_kernel=False)
+        widths[f"Q={q} M={m} K={k} D={d} fp32"] = {
+            f"{cols} columns": by_plan(feat, nbr, msk, cols, want),
+            "l2": by_plan(feat, nbr, msk, 0, want)}
+        del feat, nbr, msk, want
+    print(json.dumps({"ell_spmm_launch_plans": plans}), flush=True)
+    print(json.dumps({"ell_slab_widths": widths}), flush=True)
+    # the slab kernel's registers and spills from this run's build (none
+    # allowed in any instantiation)
+    log = build.build_log()
+    slab_build = {f"{name} RB={rb}": ptxas_report(log, f"ell_slab_kernelI{frag}Li{rb}E")
+                  for name, frag in (("fp32", "f"), ("bf16", "13__nv_bfloat16"))
+                  for rb in (128, 64)}
+    print(json.dumps({"ell_slab_build": slab_build}), flush=True)
+    for name, rep in slab_build.items():
+        assert rep["spill_store_bytes"] == 0 == rep["spill_load_bytes"], (name, rep)
     return {"name": "ell_aggregate", "route": "cuda", "source": "src/repro_torch/csrc/ell_spmm.cu",
             "replaces": "src/repro/kernels/ell_spmm/kernel.py:40", "max_abs_err": 0.0,
-            "library": "CSR torch.sparse.mm", **timed[0], "second_shape": timed[1]}
+            "library": "CSR torch.sparse.mm", **timed[0], "second_shape": timed[1],
+            "kernel_build": slab_build["fp32 RB=128"]}
 
 
 # --------------------------------------------------------------- indexes ----

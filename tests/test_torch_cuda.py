@@ -626,34 +626,91 @@ def test_reduced_train_step_kernels_match_plain(dev):
 
 
 # ------------------------------------------------------------ ell_spmm ----
-ELL_CASES = [  # q, m, k, d, dtype: the chip_smoke regimes, odd widths, M = 1, K = 1
-    (64, 1024, 32, 128, torch.float32), (32, 256, 16, 128, torch.float32),
-    (3, 100, 12, 48, torch.float32), (2, 50, 4, 200, torch.float32),
-    (4, 1000, 40, 64, torch.float32), (5, 17, 1, 33, torch.float32), (3, 1, 3, 8, torch.float32),
-    (8, 256, 16, 128, torch.bfloat16), (2, 50, 4, 200, torch.bfloat16)]
+ELL_CASES = [  # q, m, k, d, dtype, slab columns the plan takes (0: the l2 variant): the
+    # chip_smoke regimes, odd widths (a partial last slab; D = 33 unaligned), M = 1, K = 1,
+    # K past one 32-slot chunk, M where only 16-column slabs fit and past any slab
+    # (fp32 and bf16); more blocks than SMs with 16-column, unaligned and bf16 slabs
+    (64, 1024, 32, 128, torch.float32, 32), (32, 256, 16, 128, torch.float32, 32),
+    (3, 100, 12, 48, torch.float32, 32), (2, 50, 4, 200, torch.float32, 32),
+    (4, 1000, 40, 64, torch.float32, 32), (5, 17, 1, 33, torch.float32, 32),
+    (3, 1, 3, 8, torch.float32, 32), (2, 300, 70, 128, torch.float32, 32),
+    (3, 3000, 24, 128, torch.float32, 16), (2, 5000, 16, 40, torch.float32, 0),
+    (2, 8000, 16, 128, torch.float32, 0), (40, 3000, 8, 64, torch.float32, 16),
+    (150, 200, 8, 33, torch.float32, 32),
+    (8, 256, 16, 128, torch.bfloat16, 64), (2, 50, 4, 200, torch.bfloat16, 64),
+    (2, 3000, 8, 96, torch.bfloat16, 32), (3, 40, 5, 33, torch.bfloat16, 64),
+    (100, 512, 16, 128, torch.bfloat16, 64), (2, 7000, 8, 128, torch.bfloat16, 0)]
 
 
-@pytest.mark.parametrize("q,m,k,d,dtype", ELL_CASES)
-def test_ell_spmm_kernel_matches_plain(dev, q, m, k, d, dtype):
-    """Bit for bit: kernel and plain version add the same fp32 values in
-    slot order and round once.  Ids of M (mask set) and past M, all-masked
-    rows and an all-masked query count as the zero sentinel."""
-    from repro_torch.kernels.ell_spmm import kernel, ops
-
+def _ell_inputs(dev, q, m, k, d, dtype, feat_offset=0):
+    """Features (starting ``feat_offset`` elements into their buffer), ids
+    in [0, M] and a 70% mask, with ids of M and past M under a set mask,
+    all-masked rows and an all-masked query."""
     rng = np.random.default_rng(q * m + k)
-    feat = torch.from_numpy(rng.standard_normal((q, m, d)).astype(np.float32)).to(dev, dtype)
+    flat = torch.from_numpy(rng.standard_normal(feat_offset + q * m * d).astype(np.float32))
+    feat = flat.to(dev, dtype)[feat_offset:].view(q, m, d)
     nbr = torch.from_numpy(rng.integers(0, m + 1, (q, m, k)).astype(np.int32)).to(dev)
     msk = torch.from_numpy(rng.random((q, m, k)) < 0.7).to(dev)
     nbr[:, ::7, 0] = m
     nbr[:, ::5, -1] = m + 3
     msk[:, ::3, :] = False
     msk[-1] = False
+    return feat, nbr, msk
+
+
+@pytest.mark.parametrize("q,m,k,d,dtype,cols", ELL_CASES)
+def test_ell_spmm_kernel_matches_plain(dev, q, m, k, d, dtype, cols):
+    """Bit for bit: kernel and plain version add the same fp32 values in
+    slot order and round once.  Ids of M (mask set) and past M, all-masked
+    rows and an all-masked query count as the zero sentinel.  One launch,
+    the plan's variant and slab width."""
+    from repro_torch.kernels.ell_spmm import kernel, ops
+
+    feat, nbr, msk = _ell_inputs(dev, q, m, k, d, dtype)
     before = kernel.launches.count
     got = ops.ell_aggregate(feat, nbr, msk)
     torch.cuda.synchronize()
     assert kernel.launches.count == before + 1 and got.dtype == dtype
+    assert kernel.last_plan == kernel.ell_plan(q, m, k, d, dtype)
+    assert kernel.last_plan.variant == (kernel.L2 if cols == 0 else kernel.SLAB)
+    assert kernel.last_plan.cols == cols
     assert torch.equal(got, ops.ell_aggregate(feat, nbr, msk, use_kernel=False))
     assert not got[-1].any() and not got[:, ::3].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("row_bytes", [128, 64])
+def test_ell_spmm_every_slab_width_and_unaligned_features(dev, dtype, row_bytes):
+    """Each slab width forced at one shape, on features 16-byte aligned and
+    not (one element into their buffer: the slab is then staged with element
+    copies), bit for bit against the plain version."""
+    from repro_torch.kernels.ell_spmm import kernel, ops
+
+    width = row_bytes // dtype.itemsize
+    for offset in (0, 1):
+        feat, nbr, msk = _ell_inputs(dev, 3, 700, 20, 3 * width + 8, dtype, feat_offset=offset)
+        plan = kernel.ell_plan(3, 700, 20, feat.shape[2], dtype, cols=width)
+        got = kernel.ell_aggregate_kernel(feat, nbr, msk, plan=plan)
+        torch.cuda.synchronize()
+        assert kernel.last_plan == plan and plan.grid == 3 * 4
+        assert torch.equal(got, ops.ell_aggregate(feat, nbr, msk, use_kernel=False)), offset
+
+
+def test_ell_spmm_slab_on_every_device(dev):
+    """The slab kernel's shared-memory limit (past 48 KB) is a setting of
+    each device: a launch on a second card after one on the first still
+    raises it there.  Needs two cards."""
+    from repro_torch.kernels.ell_spmm import kernel, ops
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    for i in (0, 1):
+        with torch.cuda.device(i):
+            feat, nbr, msk = _ell_inputs(torch.device("cuda", i), 4, 1024, 16, 128, torch.float32)
+            got = ops.ell_aggregate(feat, nbr, msk)
+            torch.cuda.synchronize()
+            assert kernel.last_plan.smem_bytes > 48 * 1024
+            assert torch.equal(got, ops.ell_aggregate(feat, nbr, msk, use_kernel=False)), i
 
 
 # ------------------------------------------------------------ ivf_scan ----
