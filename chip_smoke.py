@@ -26,6 +26,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    retrieval wave (auto, compact alone, dense alone) are timed and profiled,
    and small fp32 runs check the card's outputs against the CPU's exactly
    (serving in auto and compact mode, every strategy in both backends);
+5b. paged KV: the same mix and weights through the paged arena with prefix
+   sharing (16-token blocks, the default 1,024-block pool): wave admission
+   (tokens equal the contiguous serve's, the 4 repeats share), continuous
+   admission, int8 KV (pool bytes against bf16's) and a pool that decode
+   growth exhausts (truncations after pin reclaims); each run's launches
+   asserted, its allocator checked after the drain, its decode profiled;
+   then reduced fp32 paged serves (share + continuous, int8, a small pool)
+   on the card against the CPU, allocator state and pin counters included;
 6. ell_spmm: the ``ell_aggregate`` op driven at the regime of the TPU
    kernel it replaces (Q = 64, M = 1024, K = 32 and Q = 32, M = 256, K = 16,
    D = 128; its launches counted), and the kernel against its plain version
@@ -68,6 +76,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -512,18 +521,13 @@ def serve_counters() -> dict:
             "bfs_frontier": bfs_kernel.launches, "frontier_expand": fe_kernel.launches}
 
 
-def main_path(cfg, index: str = "brute", params=None):
-    """Serve 8 distinct requests plus 4 repeats through the port's entry
-    points with ``cfg`` and the ``index`` kind on the card; every kernel
-    launch is counted.  ``params`` reuses the weights of an earlier serve.
-    Returns (summary, params)."""
+def counted_serve(cfg, args: argparse.Namespace, q_ids: np.ndarray, params=None):
+    """``_serve_rag`` with every kernel launch counted (counts set to 0 just
+    before, read just after) and each compact wave's overflowing rows
+    observed.  Returns (serve summary, launches, overflowing rows per wave)."""
     from repro_torch.core import graph_retrieval as gr
     from repro_torch.launch.serve import _serve_rag
 
-    args = serve_args(index=index)
-    distinct = np.random.default_rng(0).choice(args.nodes, 8, replace=False)
-    q_ids = np.concatenate([distinct, distinct[:4]])
-    # observe (not change) the compact backend: each wave's overflowing rows
     overflow_rows: list = []
     compact_bfs = gr.COMPACT_STRATEGIES["bfs"]
 
@@ -534,6 +538,7 @@ def main_path(cfg, index: str = "brute", params=None):
 
     gr.COMPACT_STRATEGIES["bfs"] = recording
     counters = serve_counters()
+    gc.collect()  # an earlier serve's engine and graph may sit in reference cycles
     try:
         torch.cuda.reset_peak_memory_stats()
         for counter in counters.values():
@@ -542,6 +547,33 @@ def main_path(cfg, index: str = "brute", params=None):
         launches = {name: c.count for name, c in counters.items()}
     finally:
         gr.COMPACT_STRATEGIES["bfs"] = compact_bfs
+    return out, launches, overflow_rows
+
+
+def check_serve_launches(out: dict, launches: dict, overflow_rows: list, index: str) -> int:
+    """The retrieval kernels ran on the serve: ``topk_sim`` (brute) or
+    ``ivf_scan`` once a wave, ``frontier_expand`` once a hop of every wave,
+    ``bfs_frontier`` once a hop of every dense re-run.  Returns the re-runs."""
+    waves = out["retrieval_batches"]
+    hops = out["engine"].pipeline.config.max_hops
+    reruns = sum(1 for r in overflow_rows if r > 0)  # waves that re-ran dense
+    assert waves > 0 and len(overflow_rows) == waves, (overflow_rows, waves)
+    assert launches["topk_sim"] == (waves if index == "brute" else 0), (launches, waves)
+    assert launches["ivf_scan"] == (waves if index == "ivf" else 0), (launches, waves)
+    assert launches["frontier_expand"] == hops * waves, (launches, waves)
+    assert launches["bfs_frontier"] == hops * reruns, (launches, overflow_rows)
+    return reruns
+
+
+def main_path(cfg, index: str = "brute", params=None):
+    """Serve 8 distinct requests plus 4 repeats through the port's entry
+    points with ``cfg`` and the ``index`` kind on the card; every kernel
+    launch is counted.  ``params`` reuses the weights of an earlier serve.
+    Returns (summary, params, per-uid tokens)."""
+    args = serve_args(index=index)
+    distinct = np.random.default_rng(0).choice(args.nodes, 8, replace=False)
+    q_ids = np.concatenate([distinct, distinct[:4]])
+    out, launches, overflow_rows = counted_serve(cfg, args, q_ids, params)
     done, s = out["done"], out["stats"]
     assert len(done) == 12 and all(r.done and not r.failed for r in done), "requests lost or failed"
     vocab = out["cfg"].vocab
@@ -551,15 +583,9 @@ def main_path(cfg, index: str = "brute", params=None):
     assert s["hits"] >= 4 and all(r.cache_hit for r in done if r.uid >= 8), s["hits"]
     waves = out["retrieval_batches"]
     pipe = out["engine"].pipeline
-    hops = pipe.config.max_hops
-    reruns = sum(1 for r in overflow_rows if r > 0)  # waves that re-ran dense
     print(f"main path ({index} index): {waves} retrieval waves, overflowing rows per wave "
           f"{overflow_rows}, launches {launches}", flush=True)
-    assert waves > 0 and len(overflow_rows) == waves, (overflow_rows, waves)
-    assert launches["topk_sim"] == (waves if index == "brute" else 0), (launches, waves)
-    assert launches["ivf_scan"] == (waves if index == "ivf" else 0), (launches, waves)
-    assert launches["frontier_expand"] == hops * waves, (launches, waves)
-    assert launches["bfs_frontier"] == hops * reruns, (launches, overflow_rows)
+    reruns = check_serve_launches(out, launches, overflow_rows, index)
     decode_profile = profile_decode(out["engine"].engine) if index == "brute" else None
     # one warm retrieval wave (4 fresh queries) on its own, through auto (and
     # for the brute index compact alone and dense alone): wall time and
@@ -588,7 +614,126 @@ def main_path(cfg, index: str = "brute", params=None):
                "cache_len": out["cache_len"],
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                "decode_profile": decode_profile, "retrieval_wave": retrieval_wave}
-    return summary, out["params"]
+    return summary, out["params"], {r.uid: r.out_tokens for r in done}
+
+
+# ------------------------------------------------------------- paged KV ----
+def pool_bytes(cache) -> int:
+    """Bytes of the K/V pool with its int8 scales."""
+    return sum(t.numel() * t.element_size()
+               for t in (cache.k, cache.v, cache.k_scale, cache.v_scale) if t is not None)
+
+
+def check_allocator(eng) -> None:
+    """Drained: the free stack holds every block no cache pin holds, and the
+    host mirrors equal the device ``table``, ``free[:n_free]`` and ``ref``."""
+    assert not eng.live.any() and not eng.queue
+    assert eng._free_host == eng.pool_blocks - eng.kv_pinned_blocks, \
+        (eng._free_host, eng.pool_blocks, eng.kv_pinned_blocks)
+    depth = len(eng._free_stack)
+    assert int(eng.cache.n_free) == depth
+    assert eng.cache.free[:depth].cpu().tolist() == eng._free_stack
+    assert eng.cache.ref.cpu().tolist() == eng._ref_host.tolist()
+    table = eng.cache.table.cpu().numpy()
+    for i, blks in enumerate(eng._slot_blocks):
+        assert table[i, :len(blks)].tolist() == blks and (table[i, len(blks):] == -1).all()
+
+
+def token_agreement(a: dict, b: dict) -> dict:
+    """Share of uids whose tokens are all equal, and of token positions."""
+    pos = sum(len(a[u]) for u in a)
+    same = sum(x == y for u in a for x, y in zip(a[u], b[u]))
+    return {"uids_equal": sum(a[u] == b[u] for u in a) / len(a), "tokens_equal": same / pos}
+
+
+def paged_run(card: str, name: str, cfg, params, q_ids, reclaims: list | None = None,
+              **kw) -> tuple[dict, dict]:
+    """One counted serve of the main path's mix over the paged arena, its
+    launch counts asserted, the allocator checked after the drain, and one
+    line of numbers printed.  Returns (record, requests by uid)."""
+    args = serve_args(paged_kv=True, prefix_share=True, **kw)
+    out, launches, overflow_rows = counted_serve(cfg, args, q_ids, params)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_serve_launches(out, launches, overflow_rows, "brute")
+    done, s, eng = out["done"], out["stats"], out["engine"].engine
+    assert len(done) == len(q_ids) and all(r.done and not r.failed for r in done), name
+    check_allocator(eng)
+    rec = {"paged_run": name, "card": card, "admission": s["admission"],
+           "kv_quant": cfg.kv_quant, "cache_len": out["cache_len"], "max_new": args.max_new,
+           "tok_per_s": out["tok_per_s"], "decode_ms_per_step": out["decode_ms_per_step"],
+           "decode_steps": s["decode_steps"], "prefill_batches": s["prefill_batches"],
+           "prefill_rows": s["prefill_rows"], "retrieval_batches": s["retrieval_batches"],
+           "launches": launches, "peak_mem_gb": peak, "kv_pool_bytes": pool_bytes(eng.cache),
+           "truncations": s["truncations"], "truncated": sum(r.truncated for r in done),
+           **{k: s[k] for k in ("block_size", "pool_blocks", "pool_high_water_blocks",
+                                "pool_free_blocks", "kv_shared_admits", "kv_reused_tokens",
+                                "kv_cow_copies", "kv_pins", "kv_releases", "kv_pinned_blocks")}}
+    if reclaims is not None:  # reclaim_kv calls: the first one's truncation count, blocks freed
+        rec["pin_reclaims"] = {"calls": len(reclaims),
+                               "truncations_at_first": reclaims[0]["truncations_before"],
+                               "blocks_freed": sum(r["freed"] for r in reclaims)}
+    rec["decode_profile"] = profile_decode(eng)
+    print(json.dumps(rec), flush=True)
+    return rec, {r.uid: r for r in done}
+
+
+def tokens(done: dict) -> dict:
+    return {u: r.out_tokens for u, r in done.items()}
+
+
+def paged_phase(card: str, cfg, params, contiguous_tokens: dict) -> dict:
+    """The main path's mix (8 distinct + 4 repeated queries, 12 new tokens,
+    4 slots, the 169,343-node graph, brute index, auto retrieval) through
+    the paged arena with prefix sharing, with the main path's weights:
+
+    1. wave admission, the automatic 16-token blocks and the default pool:
+       tokens equal the contiguous serve's, the 4 repeats share;
+    2. continuous admission: the share of tokens equal to run 1's;
+    3. int8 KV: the pool's bytes against run 1's, the share of tokens equal;
+    4. a pool that decode growth exhausts (cache_len 128, 24 new tokens: at
+       96-token prompts 12 cannot cross a 16-token block boundary, 24
+       always do; the pool holds the first wave's admission and no more):
+       truncations, pins reclaimed first, and the rest served."""
+    from repro_torch.serving import cache as cache_mod
+
+    distinct = np.random.default_rng(0).choice(N_NODES, 8, replace=False)
+    q_ids = np.concatenate([distinct, distinct[:4]])
+    run1, done1 = paged_run(card, "paged_share_wave", cfg, params, q_ids)
+    toks1 = tokens(done1)
+    assert toks1 == contiguous_tokens, "paged serve's tokens differ from the contiguous serve's"
+    assert run1["kv_shared_admits"] == 4, run1["kv_shared_admits"]
+    assert run1["block_size"] == 16 and run1["pool_blocks"] == 1024, run1
+    run2, done2 = paged_run(card, "paged_share_continuous", cfg, params, q_ids,
+                            admission="continuous")
+    assert run2["truncated"] == 0
+    run2["agreement_with_wave"] = token_agreement(toks1, tokens(done2))
+    run3, done3 = paged_run(card, "paged_share_int8", dataclasses.replace(cfg, kv_quant=True),
+                            params, q_ids)
+    run3["agreement_with_bf16"] = token_agreement(toks1, tokens(done3))
+    run3["pool_bytes_ratio"] = run3["kv_pool_bytes"] / run1["kv_pool_bytes"]
+    # int8 rows plus one bf16 scale a row, against rows of cfg.dtype
+    want = (1 + 2 / cfg.d_head) / torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    assert abs(run3["pool_bytes_ratio"] - want) < 1e-9, (run3["pool_bytes_ratio"], want)
+    # run 4: the pool holds exactly the first wave's admission (uids 0-3)
+    pool = max(128 // 16, sum(-(-(len(done1[u].prompt_ids) + 1) // 16) for u in range(4)))
+    reclaims: list = []
+    reclaim_kv = cache_mod.RetrievalCache.reclaim_kv
+
+    def recording(self, want_blocks, owner=None):
+        freed = reclaim_kv(self, want_blocks, owner)
+        reclaims.append({"truncations_before": owner.truncations, "want": want_blocks,
+                         "freed": freed})
+        return freed
+
+    cache_mod.RetrievalCache.reclaim_kv = recording
+    try:
+        run4, _ = paged_run(card, "paged_share_pool_exhaustion", cfg, params, q_ids, reclaims,
+                            cache_len=128, max_new=24, pool_blocks=pool)
+    finally:
+        cache_mod.RetrievalCache.reclaim_kv = reclaim_kv
+    assert run4["truncations"] >= 1 and run4["truncated"] == run4["truncations"], run4
+    assert run4["pin_reclaims"]["truncations_at_first"] == 0 and run4["kv_releases"] >= 1
+    return {"runs": [run1, run2, run3, run4]}
 
 
 def cross_device_check(reduced_cfg) -> int:
@@ -643,6 +788,49 @@ def cross_device_check(reduced_cfg) -> int:
                 assert torch.equal(a.overflow.cpu(), b.overflow), (strategy, "overflow")
                 overflowed += int(b.overflow.sum())
     return overflowed
+
+
+def paged_cross_device_check(reduced_cfg) -> dict:
+    """The reduced fp32 serve of the main path's mix on the card and on the
+    CPU with the same weights, under paged + share + continuous admission,
+    paged + int8 KV, and a small pool that truncates: tokens, retrieved
+    nodes, prompts, truncated flags, the final block tables, free stack and
+    refcounts, and the pin counters must agree exactly."""
+    from repro_torch.launch.serve import _serve_rag
+
+    distinct = np.random.default_rng(0).choice(3000, 8, replace=False)
+    q_ids = np.concatenate([distinct, distinct[:4]])
+    # cache_len 112: 16-token blocks (the default length, 103, is prime)
+    cases = {"share_continuous": (reduced_cfg, dict(prefix_share=True, admission="continuous",
+                                                    pool_blocks=96)),
+             "int8": (dataclasses.replace(reduced_cfg, kv_quant=True), {}),
+             "small_pool": (reduced_cfg, dict(prefix_share=True, pool_blocks=14))}
+    summary = {}
+    for name, (cfg, kw) in cases.items():
+        kw = dict(nodes=3000, paged_kv=True, cache_len=112, **kw)
+        card = _serve_rag(cfg, serve_args(**kw), q_ids=q_ids)
+        host = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v.cpu())
+                for k, v in card["params"].items()}
+        cpu = _serve_rag(cfg, serve_args(device="cpu", **kw), q_ids=q_ids, params=host)
+        runs = [{r.uid: r for r in out["done"]} for out in (card, cpu)]
+        assert sorted(runs[0]) == sorted(runs[1]) == list(range(12)), name
+        for uid, a in runs[0].items():
+            b = runs[1][uid]
+            assert np.array_equal(a.retrieved_nodes, b.retrieved_nodes), (name, uid)
+            assert np.array_equal(a.prompt_ids, b.prompt_ids), (name, uid)
+            assert (a.out_tokens, a.truncated) == (b.out_tokens, b.truncated), (name, uid)
+        ea, eb = card["engine"].engine, cpu["engine"].engine
+        for field in ("table", "free", "n_free", "ref"):
+            assert torch.equal(getattr(ea.cache, field).cpu(), getattr(eb.cache, field)), \
+                (name, field)
+        keys = ("truncations", "kv_shared_admits", "kv_reused_tokens", "kv_cow_copies",
+                "kv_pins", "kv_releases", "kv_pinned_blocks", "pool_high_water_blocks")
+        for key in keys:
+            assert card["stats"][key] == cpu["stats"][key], (name, key)
+        summary[name] = {key: card["stats"][key] for key in keys}
+    assert summary["share_continuous"]["kv_shared_admits"] == 4, summary
+    assert summary["small_pool"]["truncations"] >= 1, summary
+    return summary
 
 
 def profile_decode(engine, steps: int = 5) -> dict:
@@ -1520,10 +1708,11 @@ def main() -> int:
     del g, ell, emb
     torch.cuda.empty_cache()
 
-    mp, params = main_path(spec.model_cfg)
+    mp, params, brute_tokens = main_path(spec.model_cfg)
     print(json.dumps({"main_path": "starcoder2-3b bf16, 169343-node graph, retrieval auto",
                       "card": card, **mp}), flush=True)
     mp_ivf = main_path(spec.model_cfg, index="ivf", params=params)[0]
+    paged = paged_phase(card, spec.model_cfg, params, brute_tokens)
     del params
     print(json.dumps({"main_path": "the same with the IVF index (64 lists, nprobe 4)",
                       "card": card, **mp_ivf}), flush=True)
@@ -1533,7 +1722,25 @@ def main() -> int:
                               mp_ivf["retrieval_wave"]["auto"]["wall_ms"]],
         "warm_wave_device_ms": [mp["retrieval_wave"]["auto"]["device_ms"],
                                 mp_ivf["retrieval_wave"]["auto"]["device_ms"]]}}), flush=True)
+    run1, run2, run3, run4 = paged["runs"]
+    print(json.dumps({"paged_phase": {
+        "card": card, "tokens_equal_contiguous": True, "shared_admits": run1["kv_shared_admits"],
+        "decode_ms_per_step_contiguous_paged": [mp["decode_ms_per_step"],
+                                                run1["decode_ms_per_step"]],
+        "device_busy_ms_per_step_contiguous_paged": [
+            mp["decode_profile"]["device_busy_ms_per_step"],
+            run1["decode_profile"]["device_busy_ms_per_step"]],
+        "continuous_agreement_with_wave": run2["agreement_with_wave"],
+        "int8_agreement_with_bf16": run3["agreement_with_bf16"],
+        "int8_pool_bytes_ratio": run3["pool_bytes_ratio"],
+        "kv_pool_bytes_bf16_int8": [run1["kv_pool_bytes"], run3["kv_pool_bytes"]],
+        "peak_mem_gb_bf16_int8": [run1["peak_mem_gb"], run3["peak_mem_gb"]],
+        "exhaustion": {k: run4[k] for k in ("pool_blocks", "truncations", "kv_releases",
+                                            "pool_high_water_blocks", "pin_reclaims")}}}),
+          flush=True)
     torch.cuda.empty_cache()
+    print(json.dumps({"paged_cross_device": paged_cross_device_check(spec.reduced_cfg)}),
+          flush=True)
     overflowed = cross_device_check(spec.reduced_cfg)
     print(f"cross-device check: card and CPU agree on nodes, prompts and tokens (auto, "
           f"compact, auto with IVF) and on every strategy in both backends ({overflowed} "

@@ -8,6 +8,8 @@ cache + decode), on the card by default.
         --nodes 169343
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b --rag \
         --index sharded_ivf --shards 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b --rag \
+        --paged-kv --prefix-share --admission continuous --device cpu
 
 The CLI serves the arch's reduced config, as the reference launcher does;
 :func:`_serve_rag` takes any config (``chip_smoke.py`` passes the full one).
@@ -39,7 +41,11 @@ def _serve_rag(cfg, args, q_ids: Optional[np.ndarray] = None,
     ``args.device``, serve ``args.requests`` requests, and return a summary.
     ``q_ids`` picks the query nodes (default: drawn as the reference does);
     ``params`` replaces the seeded random weights (a CPU and a CUDA
-    generator draw different numbers from one seed)."""
+    generator draw different numbers from one seed).  The serving flags
+    (``admission``, ``paged_kv``, ``prefix_share``, ``kv_block``,
+    ``pool_blocks``) and ``cache_len`` (the arena length; default: the
+    window, or the longest prompt plus ``max_new``) are optional
+    attributes of ``args``."""
     dev = resolve_device(args.device)
     t_setup = time.perf_counter()
     g = generators.citation_graph(args.nodes, avg_deg=8, seed=0)
@@ -59,9 +65,14 @@ def _serve_rag(cfg, args, q_ids: Optional[np.ndarray] = None,
         params = tm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     # the linearized graph prompt (<= tokenizer max_len) plus generated
     # tokens must fit the arena; sliding_window only bounds attention reach
-    cache_len = max(cfg.sliding_window or 0, 96 + args.max_new + 1)
-    serve_cfg = ServingConfig.resolve(None, slots=args.slots, cache_len=cache_len,
-                                      cache_policy=args.cache_policy)
+    cache_len = getattr(args, "cache_len", None) or max(cfg.sliding_window or 0,
+                                                        96 + args.max_new + 1)
+    serve_cfg = ServingConfig.resolve(
+        None, slots=args.slots, cache_len=cache_len, cache_policy=args.cache_policy,
+        admission=getattr(args, "admission", None), paged_kv=getattr(args, "paged_kv", None),
+        prefix_share=getattr(args, "prefix_share", None),
+        kv_block_size=getattr(args, "kv_block", None),
+        kv_pool_blocks=getattr(args, "pool_blocks", None))
     eng = RAGServeEngine(pipe, params, cfg, config=serve_cfg, device=dev)
     if q_ids is None:
         q_ids = np.random.default_rng(0).choice(args.nodes, size=args.requests, replace=True)
@@ -91,6 +102,22 @@ def _serve_rag(cfg, args, q_ids: Optional[np.ndarray] = None,
     }
 
 
+def _print_kv_stats(s: dict) -> None:
+    """The paged pool, prefix-share and truncation lines of the reference
+    launcher's printout."""
+    if s["paged_kv"]:
+        print(f"  paged KV: block={s['block_size']} tokens, pool={s['pool_blocks']} blocks, "
+              f"high water {s['pool_high_water_blocks']} blocks")
+    if s["prefix_share"]:
+        print(f"  prefix share: {s['kv_shared_admits']} shared admits / "
+              f"{s['kv_reused_tokens']} prompt tokens reused, {s['kv_cow_copies']} COW tail "
+              f"copies, {s['kv_pins']} pins ({s['kv_pinned_blocks']} blocks held, "
+              f"{s['kv_releases']} released)")
+    if s["truncations"]:
+        print(f"  truncations: {s['truncations']} request(s) retired by KV exhaustion before "
+              f"reaching max_new_tokens")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=C.ARCH_IDS)
@@ -107,6 +134,23 @@ def main(argv=None):
     ap.add_argument("--retrieval", default="auto", choices=["dense", "compact", "auto"],
                     help="stage-3 subgraph construction backend")
     ap.add_argument("--cache-policy", default="lru", choices=["lru", "lfu", "ttl"])
+    ap.add_argument("--admission", default=None, choices=["wave", "continuous"],
+                    help="admission granularity: whole waves, or one retrieval launch and "
+                         "collect per free slot (default honors RGL_ADMISSION, 'wave')")
+    ap.add_argument("--paged-kv", action=argparse.BooleanOptionalAction, default=None,
+                    help="paged KV pool: block-table indirection over fixed-size blocks; "
+                         "slots return blocks the step they retire (--no-paged-kv forces "
+                         "the contiguous arena; default honors RGL_PAGED_KV)")
+    ap.add_argument("--prefix-share", action=argparse.BooleanOptionalAction, default=None,
+                    help="pin cached entries' prefilled prompt blocks and alias them into "
+                         "later identical prompts (refcounted copy on write; needs "
+                         "--paged-kv; default honors RGL_PREFIX_SHARE)")
+    ap.add_argument("--kv-block", type=int, default=None,
+                    help="tokens per KV block (must divide cache_len; default: largest "
+                         "divisor <= 16, or RGL_KV_BLOCK)")
+    ap.add_argument("--pool-blocks", type=int, default=None,
+                    help="blocks in the shared KV pool (default slots*cache_len/block, full "
+                         "capacity; fewer save memory and may truncate generations)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if not args.rag:
@@ -117,6 +161,8 @@ def main(argv=None):
           f"{out['tokens']} tokens in {out['serve_s']:.2f}s ({out['tok_per_s']:.1f} tok/s) "
           f"on {args.device}; {s['retrieval_batches']} retrieval batches, "
           f"cache {s['hits']}/{s['hits'] + s['misses']} hits")
+    _print_kv_stats(s)
+    return out
 
 
 if __name__ == "__main__":

@@ -1,5 +1,7 @@
 """Attention: RoPE, dense and chunked (flash) causal/sliding-window attention
-for training and prefill, and KV-cache decode attention.
+for training and prefill, and KV-cache decode attention over a contiguous
+arena or, through a block table, a paged pool (int8 rows with scales or
+the working dtype).
 
 Layouts are the reference's (``repro.models.transformer.attention``):
 queries (B, S, H, dh), keys/values (B, S, KV, dh), GQA by grouping the H
@@ -93,18 +95,16 @@ def decode_attention(
     window: Optional[int] = None,
     k_new: Optional[torch.Tensor] = None,  # (B, 1, KV, dh) current token's k/v,
     v_new: Optional[torch.Tensor] = None,  # attended WITHOUT a cache write
-    k_scale: Optional[torch.Tensor] = None,
-    v_scale: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,  # (B, Sc, KV) int8-mode absmax scales
+    v_scale: Optional[torch.Tensor] = None,  # (dequantization folded into the products)
 ) -> torch.Tensor:
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8 KV cache (kv_quant) is not ported yet: ROADMAP Queue 1 item 10"
-        )
     b, _, h, dh = q.shape
     kvh = k_cache.shape[2]
     rep = h // kvh
     qg = q.reshape(b, kvh, rep, dh).float()
     s_ = torch.einsum("bkrd,bckd->bkrc", qg, k_cache.float()) * (dh**-0.5)
+    if k_scale is not None:  # int8 cache: dequantize the scores
+        s_ = s_ * k_scale.permute(0, 2, 1).float()[:, :, None]
     # strict `<` with k_new: the current position is the appended self term,
     # and the ring slot it would overwrite is stale
     lim_ok = kv_pos < cur_pos[:, None] if k_new is not None else kv_pos <= cur_pos[:, None]
@@ -114,6 +114,10 @@ def decode_attention(
     s_ = torch.where(ok[:, None, None], s_, NEG)  # (B, KV, rep, Sc)
     if k_new is None:
         p = torch.softmax(s_, dim=-1)
+        if v_scale is not None:  # fold the dequantization into p; P·V in fp32
+            p = p * v_scale.permute(0, 2, 1).float()[:, :, None]
+            o = torch.einsum("bkrc,bckd->bkrd", p, v_cache.float())
+            return o.to(q.dtype).reshape(b, 1, h, dh)
         o = torch.einsum("bkrc,bckd->bkrd", p.to(v_cache.dtype), v_cache)
         return o.reshape(b, 1, h, dh)
     s_self = torch.einsum("bkrd,bkd->bkr", qg, k_new[:, 0].float())[..., None] * (dh**-0.5)
@@ -124,3 +128,39 @@ def decode_attention(
     o = torch.einsum("bkrc,bckd->bkrd", (e_c / den).to(v_cache.dtype), v_cache)
     o = o + (e_s / den).to(v_new.dtype) * v_new[:, 0][:, :, None, :]
     return o.reshape(b, 1, h, dh)
+
+
+# --------------------------------------------------------------------------
+# paged KV: block-table indirection in front of the decode attention
+# --------------------------------------------------------------------------
+def paged_gather(pool: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """A per-slot contiguous view out of a shared paged pool: ``pool``
+    (P, ...) holds every slot's KV rows, ``rows`` (B, Sc) maps each slot's
+    logical row to its pool row (0 under unallocated blocks, see
+    ``model.block_rows``).  One gather -> (B, Sc, ...), the layout
+    :func:`decode_attention` takes."""
+    return pool[rows.long()]
+
+
+def paged_decode_attention(
+    q: torch.Tensor,  # (B, 1, H, dh) current-step query (already RoPE'd)
+    k_pool: torch.Tensor,  # (P, KV, dh) this layer's shared block pool
+    v_pool: torch.Tensor,  # (P, KV, dh)
+    rows: torch.Tensor,  # (B, Sc) block-table row map (see paged_gather)
+    kv_pos: torch.Tensor,  # (B, Sc) absolute positions, -1 = empty/unallocated
+    cur_pos: torch.Tensor,  # (B,) position of the current token
+    window: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,  # (P, KV) int8-mode scales
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Gather the slots' logical views from the pool, then run
+    :func:`decode_attention` unchanged.  Rows gathered from unallocated
+    blocks (pool row 0) carry ``kv_pos == -1``: the NEG mask makes their
+    probabilities exactly 0, so the output equals a contiguous arena's
+    holding the same live rows bit for bit (the gathered tensor has the
+    arena's shape and layout)."""
+    kc = paged_gather(k_pool, rows)
+    vc = paged_gather(v_pool, rows)
+    ks = paged_gather(k_scale, rows) if k_scale is not None else None
+    vs = paged_gather(v_scale, rows) if v_scale is not None else None
+    return decode_attention(q, kc, vc, kv_pos, cur_pos, window, k_scale=ks, v_scale=vs)

@@ -1,6 +1,7 @@
 """Decoder-only LM: init, train forward with a streamed loss, prefill and
-decode over a contiguous KV arena.  Dense SwiGLU FFN, GQA + RoPE, optional
-sliding window.
+decode over a contiguous KV arena or a paged block pool (optionally int8
+with per-row scales).  Dense SwiGLU FFN, GQA + RoPE, optional sliding
+window.
 
 Parameters are a plain dict with the reference's structure and layout:
 ``embed`` (V, D), ``head`` (D, V), ``ln_f`` (D,), and ``layers`` whose
@@ -13,6 +14,7 @@ the card), as the reference leaves them to XLA.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -33,8 +35,6 @@ def _dtype(cfg: TransformerConfig) -> torch.dtype:
 def _check_supported(cfg: TransformerConfig) -> None:
     if cfg.moe is not None:
         raise NotImplementedError("MoE FFN is not ported yet: ROADMAP Queue 1 item 16")
-    if cfg.kv_quant:
-        raise NotImplementedError("int8 KV cache is not ported yet: ROADMAP Queue 1 item 10")
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -204,21 +204,40 @@ def lm_loss(params, tokens, loss_mask, cfg: TransformerConfig, aux_weight: float
 # --------------------------------------------------------------------------
 @dataclasses.dataclass
 class KVCache:
-    k: torch.Tensor  # (L, B, Sc, KV, dh)
+    k: torch.Tensor  # (L, B, Sc, KV, dh), int8 when quantized
     v: torch.Tensor  # (L, B, Sc, KV, dh)
     pos: torch.Tensor  # (B, Sc) int32 absolute position per slot, -1 empty
     cursor: torch.Tensor  # (B,) int32 next absolute position to write
+    k_scale: Optional[torch.Tensor] = None  # (L, B, Sc, KV) bf16 absmax scales (int8 mode)
+    v_scale: Optional[torch.Tensor] = None
+
+
+def _quant_rows(x: torch.Tensor):
+    """Per-(.., KV)-row absmax int8 quantization over d_head: the row is
+    divided by its fp32 scale (absmax / 127, at least 1e-8), rounded half to
+    even and clipped to +-127; the scale is stored as bf16."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
 
 
 def init_cache(cfg: TransformerConfig, batch: int, cache_len: int, device="cuda") -> KVCache:
     _check_supported(cfg)
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.d_head)
+    kv_dtype = torch.int8 if cfg.kv_quant else _dtype(cfg)
+
+    def scales():
+        return torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev) if cfg.kv_quant else None
+
     return KVCache(
-        k=torch.zeros(shape, dtype=_dtype(cfg), device=dev),
-        v=torch.zeros(shape, dtype=_dtype(cfg), device=dev),
+        k=torch.zeros(shape, dtype=kv_dtype, device=dev),
+        v=torch.zeros(shape, dtype=kv_dtype, device=dev),
         pos=torch.full((batch, cache_len), -1, dtype=torch.int32, device=dev),
         cursor=torch.zeros((batch,), dtype=torch.int32, device=dev),
+        k_scale=scales(),
+        v_scale=scales(),
     )
 
 
@@ -239,8 +258,12 @@ def prefill(params, tokens: torch.Tensor, true_len: torch.Tensor,
     x = params["embed"][tokens.long()]
     positions = torch.arange(s, dtype=torch.int32, device=dev)[None, :]
     shape = (cfg.n_layers, b, cache_len, cfg.n_kv_heads, cfg.d_head)
-    kc = torch.zeros(shape, dtype=x.dtype, device=dev)
-    vc = torch.zeros(shape, dtype=x.dtype, device=dev)
+    quant = cfg.kv_quant
+    kc = torch.zeros(shape, dtype=torch.int8 if quant else x.dtype, device=dev)
+    vc = torch.zeros_like(kc)
+    if quant:  # the padding rows quantize to 0 with the floor scale
+        ks = torch.full(shape[:-1], 1e-8, dtype=torch.float32, device=dev).to(torch.bfloat16)
+        vs = ks.clone()
     for i in range(cfg.n_layers):
         p = layer_params(params, i)
         xn = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -250,11 +273,16 @@ def prefill(params, tokens: torch.Tensor, true_len: torch.Tensor,
         o = _attention(q, k, v, cfg, use_kernel)
         x = x + (o.reshape(b, s, -1) @ p["wo"]).to(x.dtype)
         x = _ffn(p, x, cfg)
-        kc[i, :, :s] = k
-        vc[i, :, :s] = v
+        if quant:
+            kc[i, :, :s], ks[i, :, :s] = _quant_rows(k)
+            vc[i, :, :s], vs[i, :, :s] = _quant_rows(v)
+        else:
+            kc[i, :, :s] = k
+            vc[i, :, :s] = v
     slot_pos = torch.arange(cache_len, dtype=torch.int32, device=dev)[None, :]
     pos = torch.where(slot_pos < true_len[:, None], slot_pos, -1).to(torch.int32)
-    cache = KVCache(k=kc, v=vc, pos=pos, cursor=true_len.to(torch.int32))
+    cache = KVCache(k=kc, v=vc, pos=pos, cursor=true_len.to(torch.int32),
+                    k_scale=ks if quant else None, v_scale=vs if quant else None)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     last = x[torch.arange(b, device=dev), torch.clamp(true_len - 1, min=0).long()]  # (B, D)
     return last.float() @ params["head"].float(), cache
@@ -283,9 +311,20 @@ def decode_step(params, cache: KVCache, token: torch.Tensor, cfg: TransformerCon
         q, k, v = _attn_proj(p, xn, cfg)
         q = attn.rope(q, cur[:, None], cfg.rope_theta)
         k = attn.rope(k, cur[:, None], cfg.rope_theta)
-        cache.k[i, bidx, slot] = k[:, 0]
-        cache.v[i, bidx, slot] = v[:, 0]
-        o = attn.decode_attention(q, cache.k[i], cache.v[i], pos, cur, cfg.sliding_window)
+        ks = vs = None
+        if cfg.kv_quant:
+            kq, ksc = _quant_rows(k)
+            vq, vsc = _quant_rows(v)
+            cache.k[i, bidx, slot] = kq[:, 0]
+            cache.v[i, bidx, slot] = vq[:, 0]
+            cache.k_scale[i, bidx, slot] = ksc[:, 0]
+            cache.v_scale[i, bidx, slot] = vsc[:, 0]
+            ks, vs = cache.k_scale[i], cache.v_scale[i]
+        else:
+            cache.k[i, bidx, slot] = k[:, 0]
+            cache.v[i, bidx, slot] = v[:, 0]
+        o = attn.decode_attention(q, cache.k[i], cache.v[i], pos, cur, cfg.sliding_window,
+                                  k_scale=ks, v_scale=vs)
         x = x + (o.reshape(b, 1, -1) @ p["wo"]).to(x.dtype)
         x = _ffn(p, x, cfg)
     cache.pos = pos
@@ -300,6 +339,279 @@ def serve_step(params, cache: KVCache, token: torch.Tensor, cfg: TransformerConf
     return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
 
+# --------------------------------------------------------------------------
+# paged KV pool: block-table indirection over a shared block arena
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class PagedKVCache:
+    """KV arena as a pool of fixed-size blocks shared by every decode slot.
+
+    ``pos`` / ``cursor`` keep :class:`KVCache`'s per-slot view over a
+    virtual (B, Sc) arena; the rows live in a (L, P, KV, dh) pool of
+    ``pool_blocks`` blocks of ``block_size`` rows (P = pool_blocks *
+    block_size).  ``table[b, j]`` names the block backing slot b's
+    positions [j*bs, (j+1)*bs), -1 = none; allocated entries form a prefix
+    of the row.  ``free[:n_free]`` is the free-list stack (pops from the
+    top, pushes in ascending block id), and ``ref`` counts each block's
+    holders: table entries plus retrieval-cache pins.  A block returns to
+    the stack only when its count reaches 0, so a shared prompt prefix
+    outlives any one holder.  The serving engine replays the same
+    arithmetic on host mirrors, so exhaustion checks never read the device.
+    """
+
+    k: torch.Tensor  # (L, P, KV, dh), int8 when quantized
+    v: torch.Tensor  # (L, P, KV, dh)
+    pos: torch.Tensor  # (B, Sc) int32 absolute position per logical row, -1 empty
+    cursor: torch.Tensor  # (B,) int32 next absolute position to write
+    table: torch.Tensor  # (B, max_blocks) int32 pool block per logical block, -1 none
+    free: torch.Tensor  # (pool_blocks,) int32 free-list stack storage
+    n_free: torch.Tensor  # () int32 valid stack depth
+    ref: torch.Tensor  # (pool_blocks,) int32 holders per block (0 = free)
+    k_scale: Optional[torch.Tensor] = None  # (L, P, KV) bf16 absmax scales (int8 mode)
+    v_scale: Optional[torch.Tensor] = None
+
+
+def init_paged_cache(cfg: TransformerConfig, batch: int, cache_len: int, block_size: int,
+                     pool_blocks: int, device="cuda") -> PagedKVCache:
+    """An empty pool (zeroed, so gathers of unused rows stay finite) with
+    every block on the free stack."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    if cache_len % block_size != 0:
+        raise ValueError(f"block_size={block_size} must divide cache_len={cache_len}")
+    shape = (cfg.n_layers, pool_blocks * block_size, cfg.n_kv_heads, cfg.d_head)
+    kv_dtype = torch.int8 if cfg.kv_quant else _dtype(cfg)
+
+    def scales():
+        return torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev) if cfg.kv_quant else None
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    return PagedKVCache(
+        k=torch.zeros(shape, dtype=kv_dtype, device=dev),
+        v=torch.zeros(shape, dtype=kv_dtype, device=dev),
+        pos=torch.full((batch, cache_len), -1, **i32),
+        cursor=torch.zeros((batch,), **i32),
+        table=torch.full((batch, cache_len // block_size), -1, **i32),
+        free=torch.arange(pool_blocks, **i32),
+        n_free=torch.tensor(pool_blocks, **i32),
+        ref=torch.zeros((pool_blocks,), **i32),
+        k_scale=scales(),
+        v_scale=scales(),
+    )
+
+
+def block_rows(table: torch.Tensor, block_size: int) -> torch.Tensor:
+    """(B, M) block table -> (B, M*bs) pool-row map.  Rows under
+    unallocated blocks map to pool row 0; callers mask them with
+    ``pos == -1``."""
+    b, m = table.shape
+    off = torch.arange(block_size, dtype=torch.int32, device=table.device)
+    rows = table[:, :, None] * block_size + off
+    return torch.where(rows >= 0, rows, 0).reshape(b, m * block_size)
+
+
+def _excl_cumsum(x: torch.Tensor) -> torch.Tensor:
+    return (torch.cumsum(x, 0, dtype=torch.int32) - x).to(torch.int32)
+
+
+def _set_where(dst: torch.Tensor, idx: torch.Tensor, keep: torch.Tensor, value) -> torch.Tensor:
+    """``dst`` with ``dst[idx[keep]] = value``: the reference's
+    ``.at[...].set(mode="drop")`` with its out-of-range index.  Dropped
+    entries land in one scratch element past the end, which is cut off."""
+    n = dst.shape[0]
+    ext = torch.cat([dst, dst.new_zeros(1)])
+    ext[torch.where(keep, idx, n).long().reshape(-1)] = value
+    return ext[:n]
+
+
+def _count_drops(idx: torch.Tensor, keep: torch.Tensor, p: int) -> torch.Tensor:
+    """(P,) int32 count of ``idx`` entries per block where ``keep``."""
+    sel = torch.where(keep, idx, p).long().reshape(-1)
+    return torch.bincount(sel, minlength=p + 1)[:p].to(torch.int32)
+
+
+def alloc_blocks(table, free, n_free, ref, target, live, max_new: int):
+    """Grow each live slot's allocated-block prefix to ``target[b]`` blocks
+    (at most ``max_new`` new ones), popping from the top of the free stack
+    in slot order; each popped block's refcount becomes 1.  Dead slots
+    never allocate.  The caller guarantees ``sum(need) <= n_free`` (the
+    engine retires slots on the host first).  Returns (table, n_free, ref).
+
+    Column c of slot b takes pop j = c - n_tab[b], block
+    ``free[n_free - 1 - offs[b] - j]``: the reference's loop over j, done
+    for every column at once."""
+    b, m = table.shape
+    p = free.shape[0]
+    n_tab = (table >= 0).sum(dim=1, dtype=torch.int32)
+    need = torch.where(live, torch.clamp(target - n_tab, 0, max_new), 0).to(torch.int32)
+    offs = _excl_cumsum(need)
+    j = torch.arange(m, dtype=torch.int32, device=table.device)[None, :] - n_tab[:, None]
+    take = (j >= 0) & (j < need[:, None])
+    src = torch.clamp(n_free - 1 - offs[:, None] - j, 0, p - 1)
+    blk = free[src.long()]  # garbage where ~take
+    table = torch.where(take, blk, table)
+    ref = _set_where(ref, blk, take, 1)
+    return table, (n_free - need.sum(dtype=torch.int32)).to(torch.int32), ref
+
+
+def _release_refs(free, n_free, ref, drops):
+    """Drop ``drops`` (P,) holds per block and push every block whose count
+    reaches 0 back onto the free stack, in ascending block id."""
+    p = free.shape[0]
+    ref = ref - drops
+    push = (drops > 0) & (ref <= 0)
+    npush = torch.cumsum(push, 0, dtype=torch.int32)
+    ids = torch.arange(p, dtype=torch.int32, device=free.device)
+    ext = torch.cat([free, free.new_zeros(1)])
+    ext[torch.where(push, n_free + npush - 1, p).long()] = ids
+    return ext[:p], (n_free + npush[-1]).to(torch.int32), torch.clamp(ref, min=0)
+
+
+def free_slot_blocks(cache: PagedKVCache, mask: torch.Tensor) -> PagedKVCache:
+    """Drop every masked slot's hold on its blocks and clear its
+    table/pos/cursor.  A block returns to the stack only when its refcount
+    reaches 0, so blocks shared with other slots or pinned survive."""
+    table = cache.table
+    p = cache.free.shape[0]
+    drops = _count_drops(table, mask[:, None] & (table >= 0), p)
+    free, n_free, ref = _release_refs(cache.free, cache.n_free, cache.ref, drops)
+    return dataclasses.replace(
+        cache, free=free, n_free=n_free, ref=ref,
+        table=torch.where(mask[:, None], -1, table),
+        pos=torch.where(mask[:, None], -1, cache.pos),
+        cursor=torch.where(mask, 0, cache.cursor),
+    )
+
+
+def acquire_blocks(cache: PagedKVCache, ids: torch.Tensor) -> PagedKVCache:
+    """One more hold per listed block (``ids`` int32, -1 ignored): the
+    retrieval-cache pin and pending-share side of the refcount protocol."""
+    p = cache.free.shape[0]
+    return dataclasses.replace(cache, ref=cache.ref + _count_drops(ids, ids >= 0, p))
+
+
+def release_blocks(cache: PagedKVCache, ids: torch.Tensor) -> PagedKVCache:
+    """One hold fewer per listed block (``ids`` int32, -1 ignored), pushing
+    blocks that reach 0 back onto the stack."""
+    p = cache.free.shape[0]
+    free, n_free, ref = _release_refs(cache.free, cache.n_free, cache.ref,
+                                      _count_drops(ids, ids >= 0, p))
+    return dataclasses.replace(cache, free=free, n_free=n_free, ref=ref)
+
+
+def _copy_rows(pool: Optional[torch.Tensor], dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``pool[:, dst] = pool[:, src]`` in place (a no-op for no pool)."""
+    if pool is not None and dst.numel():
+        pool[:, dst] = pool[:, src]
+
+
+def adopt_prefix_blocks(cache: PagedKVCache, cur_tok, mask, src_table, length, tail_src,
+                        first, block_size: int):
+    """Map an already-prefilled prompt's pool blocks into each masked slot's
+    table instead of running prefill.  Slot b aliases the ``length[b] //
+    bs`` full leading blocks of ``src_table[b]`` (taking over the holds the
+    engine took for it); where the prompt ends mid-block (``tail_src[b] >=
+    0``, the donor's partial tail block) it pops a fresh block, copies the
+    tail's rows into it (copy on write: the next decode write lands there)
+    and drops the engine's hold on the source.  ``pos``/``cursor`` pin to
+    the prompt length and ``cur_tok`` takes ``first``.  The pool is
+    updated in place; returns (cache, cur_tok)."""
+    bs = block_size
+    b, sc = cache.pos.shape
+    p = cache.free.shape[0]
+    m = cache.table.shape[1]
+    nfull = torch.where(mask, length // bs, 0)
+    has_tail = mask & (tail_src >= 0)
+    need = has_tail.to(torch.int32)
+    offs = _excl_cumsum(need)
+    fresh = cache.free[torch.clamp(cache.n_free - 1 - offs, 0, p - 1).long()]
+    n_free = (cache.n_free - need.sum(dtype=torch.int32)).to(torch.int32)
+    ref = _set_where(cache.ref, fresh, has_tail, 1)
+    free, n_free, ref = _release_refs(cache.free, n_free, ref,
+                                      _count_drops(tail_src, has_tail, p))
+    cols = torch.arange(m, dtype=torch.int32, device=mask.device)[None, :]
+    t = torch.where(cols < nfull[:, None], src_table, -1)
+    t = torch.where((cols == nfull[:, None]) & has_tail[:, None], fresh[:, None], t)
+    table = torch.where(mask[:, None], t, cache.table)
+    # copy on write: all bs rows of each tail block
+    sel = has_tail.nonzero()[:, 0]
+    off = torch.arange(bs, device=mask.device)
+    srows = (tail_src[sel].long()[:, None] * bs + off).reshape(-1)
+    drows = (fresh[sel].long()[:, None] * bs + off).reshape(-1)
+    for pool in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+        _copy_rows(pool, drows, srows)
+    spos = torch.arange(sc, dtype=torch.int32, device=mask.device)[None, :]
+    pos_new = torch.where(spos < length[:, None], spos, -1)
+    cache = dataclasses.replace(
+        cache, table=table, free=free, n_free=n_free, ref=ref,
+        pos=torch.where(mask[:, None], pos_new, cache.pos),
+        cursor=torch.where(mask, length.to(torch.int32), cache.cursor),
+    )
+    return cache, torch.where(mask, first, cur_tok)
+
+
+@torch.no_grad()
+def paged_decode_step(params, cache: PagedKVCache, token: torch.Tensor, live: torch.Tensor,
+                      cfg: TransformerConfig, block_size: int):
+    """One decode step over the paged pool: the semantics of
+    :func:`decode_step`, and for live slots the same logits bit for bit.
+
+    ``live`` (B,) gates allocation and writes: a dead slot's cursor drifts
+    between admissions, but it never pops a block or writes a row.  The
+    pool is updated in place; the rows to write are picked once a step
+    (one host sync, before the layers run)."""
+    _check_supported(cfg)
+    b = token.shape[0]
+    sc = cache.pos.shape[1]
+    bs = block_size
+    m = cache.table.shape[1]
+    cur = cache.cursor  # (B,) position of the token being processed
+    # the block holding position `cur` (at most one new block a step)
+    target = torch.where(live, cur // bs + 1, 0)
+    table, n_free, ref = alloc_blocks(cache.table, cache.free, cache.n_free, cache.ref,
+                                      target, live, 1)
+    rows = block_rows(table, bs)
+    ent = table.gather(1, torch.clamp(cur // bs, 0, m - 1).long()[:, None])[:, 0]
+    ok_w = live & (ent >= 0) & (cur < sc)
+    keep = ok_w.nonzero()[:, 0]
+    wrow = (ent * bs + cur % bs)[keep].long()
+    # live slots never wrap: cur < sc by retirement
+    slot_mask = (torch.arange(sc, device=cur.device)[None, :] == cur[:, None]) & live[:, None]
+    pos = torch.where(slot_mask, cur[:, None], cache.pos)
+    x = params["embed"][token.long()][:, None]  # (B, 1, D)
+    for i in range(cfg.n_layers):
+        p = layer_params(params, i)
+        xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = _attn_proj(p, xn, cfg)
+        q = attn.rope(q, cur[:, None], cfg.rope_theta)
+        k = attn.rope(k, cur[:, None], cfg.rope_theta)
+        ks = vs = None
+        if cfg.kv_quant:
+            kq, ksc = _quant_rows(k[keep, 0])
+            vq, vsc = _quant_rows(v[keep, 0])
+            cache.k[i, wrow], cache.v[i, wrow] = kq, vq
+            cache.k_scale[i, wrow], cache.v_scale[i, wrow] = ksc, vsc
+            ks, vs = cache.k_scale[i], cache.v_scale[i]
+        else:
+            cache.k[i, wrow] = k[keep, 0]
+            cache.v[i, wrow] = v[keep, 0]
+        o = attn.paged_decode_attention(q, cache.k[i], cache.v[i], rows, pos, cur,
+                                        cfg.sliding_window, k_scale=ks, v_scale=vs)
+        x = x + (o.reshape(b, 1, -1) @ p["wo"]).to(x.dtype)
+        x = _ffn(p, x, cfg)
+    cache = dataclasses.replace(cache, pos=pos, cursor=cur + 1, table=table, n_free=n_free,
+                                ref=ref)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return x[:, 0].float() @ params["head"].float(), cache
+
+
+def paged_serve_step(params, cache: PagedKVCache, token: torch.Tensor, live: torch.Tensor,
+                     cfg: TransformerConfig, block_size: int):
+    """Greedy paged decode step: (next tokens (B,) int32, cache)."""
+    logits, cache = paged_decode_step(params, cache, token, live, cfg, block_size)
+    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+
 def _not_ported(name: str, item: str):
     def stub(*args, **kwargs):
         raise NotImplementedError(f"{name} is not ported yet: ROADMAP Queue 1 item {item}")
@@ -309,7 +621,5 @@ def _not_ported(name: str, item: str):
 
 verify_window = _not_ported("verify_window", "11 (speculative decode)")
 verify_step = _not_ported("verify_step", "11 (speculative decode)")
-init_paged_cache = _not_ported("init_paged_cache", "10 (paged KV)")
-paged_decode_step = _not_ported("paged_decode_step", "10 (paged KV)")
-paged_serve_step = _not_ported("paged_serve_step", "10 (paged KV)")
+paged_verify_window = _not_ported("paged_verify_window", "11 (speculative decode over paged KV)")
 paged_verify_step = _not_ported("paged_verify_step", "11 (speculative decode over paged KV)")

@@ -16,9 +16,14 @@ the reference (whose degradation ladder can still serve it).
 The **in-flight registry** records keys whose retrieval was dispatched but
 not yet collected (``mark_inflight`` / ``release_inflight``).
 
+With prefix sharing, an entry may **pin** the paged-KV pool blocks that hold
+its prefilled prompt (``kv_*`` fields, set by the serving engine).  The
+cache releases a pin when its entry leaves (eviction, overwrite, TTL purge)
+and, through :meth:`RetrievalCache.reclaim_kv`, under pool pressure, so
+cache lifetime, not request lifetime, bounds how long prefilled KV stays.
+
 Not ported yet: stale lookups for the degradation ladder (ROADMAP Queue 1
-item 12), prefix-sharing KV pins (item 10) and mutation epochs / region
-invalidation (item 13).
+item 12) and mutation epochs / region invalidation (item 13).
 """
 from __future__ import annotations
 
@@ -33,13 +38,24 @@ POLICIES = ("lru", "lfu", "ttl")
 
 @dataclasses.dataclass
 class CachedRetrieval:
-    """One query's retrieval output, materialized on host."""
+    """One query's retrieval output, materialized on host, and the
+    engine-owned pin of its prefilled prompt's KV blocks (None/defaults
+    when unpinned): ``kv_blocks`` the pool block ids (one refcount hold
+    each), ``kv_prompt`` the exact token ids they cover, ``kv_first_tok``
+    the prefill's argmax, ``kv_release`` the owning engine's release hook."""
 
     nodes: np.ndarray  # (M,) int32 subgraph node ids (sentinel where ~mask)
     mask: np.ndarray  # (M,) bool
     dist: np.ndarray  # (M,) int32 hop distances
     seeds: np.ndarray  # (S,) int32 seed node ids
     epoch: int = 0  # graph epoch the retrieval ran against (0: frozen corpus)
+    kv_blocks: np.ndarray | None = None  # (nblk,) int32 pool block ids
+    kv_len: int = 0  # prompt tokens the pinned blocks cover
+    kv_first_tok: int = -1  # prefill argmax recorded at pin time
+    kv_prompt: np.ndarray | None = None  # (L,) int32 exact pinned prompt
+    kv_owner: object = None  # engine whose pool the block ids index
+    kv_release: object = None  # hook: entry -> blocks returned to the pool
+    cache_key: bytes | None = None  # set by put(); drives is_resident()
 
 
 @dataclasses.dataclass
@@ -106,7 +122,9 @@ class RetrievalCache:
     def _purge_expired(self, now: float) -> None:
         dead = [k for k, s in self._data.items() if self._is_expired(s, now)]
         for k in dead:
-            self._count_expiry(self._data.pop(k))
+            slot = self._data.pop(k)
+            self._count_expiry(slot)
+            self._release_kv(slot.entry)
 
     # -- lookup / insert ------------------------------------------------------
     def get(self, query_emb) -> CachedRetrieval | None:
@@ -123,6 +141,12 @@ class RetrievalCache:
         self.hits += 1
         return slot.entry
 
+    @staticmethod
+    def _release_kv(entry: CachedRetrieval) -> int:
+        """Release an entry's KV pin (if any) as it leaves the cache; the
+        hook is the owning engine's and idempotent."""
+        return int(entry.kv_release(entry)) if entry.kv_release is not None else 0
+
     def _evict_one(self, protect: bytes) -> None:
         # the just-inserted key is never its own victim (else a 0-hit
         # newcomer would be evicted immediately under lfu)
@@ -133,7 +157,7 @@ class RetrievalCache:
             victim = min(pool, key=lambda k: self._data[k].hits)
         else:  # ttl: oldest inserted first
             victim = min(pool, key=lambda k: self._data[k].inserted_at)
-        del self._data[victim]
+        self._release_kv(self._data.pop(victim).entry)
         self.evictions += 1
 
     def put(self, query_emb, entry: CachedRetrieval) -> None:
@@ -142,15 +166,53 @@ class RetrievalCache:
         now = self._now()
         k = self.key(query_emb)
         prev = self._data.get(k)
+        if prev is not None and prev.entry is not entry:
+            self._release_kv(prev.entry)  # the displaced entry's pin goes
         # a re-insert keeps the accumulated hits (lfu warmth) but restarts
         # the TTL window: the data is fresh
         self._data[k] = _Slot(entry=entry, inserted_at=now,
                               hits=prev.hits if prev is not None else 0)
+        entry.cache_key = k
         self._data.move_to_end(k)
         if len(self._data) > self.capacity:
             self._purge_expired(now)
         while len(self._data) > self.capacity:
             self._evict_one(protect=k)
+
+    # -- prefilled-KV pins ----------------------------------------------------
+    def is_resident(self, entry: CachedRetrieval) -> bool:
+        """True while ``entry`` occupies its cache slot: the engine's pin
+        gate (a pin on a displaced entry would never be released)."""
+        slot = self._data.get(entry.cache_key) if entry.cache_key is not None else None
+        return slot is not None and slot.entry is entry
+
+    def kv_pinned_entries(self) -> int:
+        return sum(1 for s in self._data.values() if s.entry.kv_blocks is not None)
+
+    def reclaim_kv(self, want_blocks: int, owner=None) -> int:
+        """Release KV pins until ``want_blocks`` blocks came back to the
+        free stack (or no pins remain): TTL-expired pins first, then the
+        policy's eviction order.  Entries keep their retrieval results.
+        ``owner`` limits it to pins on one engine's pool.  Returns the
+        blocks freed."""
+        if want_blocks <= 0:
+            return 0
+        now = self._now()
+        pinned = [k for k, s in self._data.items() if s.entry.kv_blocks is not None
+                  and (owner is None or s.entry.kv_owner is owner)]
+        expired = [k for k in pinned if self._is_expired(self._data[k], now)]
+        fresh = [k for k in pinned if k not in set(expired)]
+        if self.policy == "lfu":
+            fresh.sort(key=lambda k: self._data[k].hits)
+        elif self.policy == "ttl":
+            fresh.sort(key=lambda k: self._data[k].inserted_at)
+        # lru: dict order is already least recent first
+        freed = 0
+        for k in expired + fresh:
+            if freed >= want_blocks:
+                break
+            freed += self._release_kv(self._data[k].entry)
+        return freed
 
     def stats(self) -> dict:
         total = self.hits + self.misses
@@ -165,6 +227,7 @@ class RetrievalCache:
             "size": resident,
             "resident": resident,
             "live": sum(1 for s in self._data.values() if not self._is_expired(s, now)),
+            "kv_pinned_entries": self.kv_pinned_entries(),
             "inflight": len(self._inflight),
             "hit_rate": self.hits / total if total else 0.0,
         }

@@ -1,18 +1,23 @@
 """Batched serving engine: continuous batching over fixed decode slots.
 
-A fixed (B, cache_len) KV arena; each of the B slots holds one in-flight
-request.  Every engine step runs one decode step for all slots
-(``tm.serve_step``).  Admission is batched: all free slots are refilled by
-one masked batched prefill — prompts padded to a shared power-of-two length
-bucket, run through one ``tm.prefill`` call — and the fresh cache rows are
-copied into the arena.
+Each of the B slots holds one in-flight request, and every engine step runs
+one decode step for all slots.  Admission is batched: all free slots are
+refilled by one masked batched prefill (prompts padded to a shared
+power-of-two length bucket, run through one ``tm.prefill`` call), and the
+fresh rows go into the KV arena.
 
-Only the contiguous arena with one-token decode is ported; speculative
-decode and the paged arena raise (ROADMAP Queue 1 items 10 and 11).
+Two arenas: the contiguous (B, cache_len) ``tm.KVCache`` (default), or with
+``paged_kv`` a shared pool of fixed-size blocks (``tm.PagedKVCache``): a
+slot holds only the blocks its cursor has crossed and returns them the step
+its request retires.  ``prefix_share`` (paged only) lets a request whose
+exact prompt a retrieval-cache entry has pinned alias the pinned blocks
+instead of running prefill.  Outputs are the same tokens on either arena.
+Speculative decode is not ported yet and raises (ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from collections import deque
 from typing import Optional
@@ -26,6 +31,14 @@ from repro_torch.models.transformer.config import TransformerConfig
 from repro_torch.serving.config import env_flag
 
 
+def _auto_block_size(cache_len: int, preferred: int = 16) -> int:
+    """Largest block size <= ``preferred`` dividing ``cache_len``."""
+    for b in range(min(preferred, cache_len), 0, -1):
+        if cache_len % b == 0:
+            return b
+    return 1
+
+
 @dataclasses.dataclass
 class Request:
     uid: int
@@ -33,14 +46,32 @@ class Request:
     max_new_tokens: int = 32
     out_tokens: list = dataclasses.field(default_factory=list)
     done: bool = False
-    # retired early by KV exhaustion (arena full): out_tokens is shorter
-    # than max_new_tokens and did not end at EOS
+    # retired early by KV exhaustion (arena full, or paged pool empty):
+    # out_tokens is shorter than max_new_tokens and did not end at EOS
     truncated: bool = False
     # retired by ServeEngine.abort(): tokens emitted so far are kept
     failed: bool = False
     error: Optional[str] = None
     # monotonic admission ticket assigned by the submitting front-end
     ticket: int = -1
+    # prefix sharing (set by the RAG layer): ``shared_prefix`` names a
+    # CachedRetrieval whose pinned blocks cover this exact prompt (admission
+    # re-validates, else prefills); ``pin_to`` names the entry that receives
+    # this request's freshly prefilled prompt blocks as its pin
+    shared_prefix: object = None
+    pin_to: object = None
+
+
+@dataclasses.dataclass
+class _SharePlan:
+    """Admission-time snapshot of a validated prefix share; the holds the
+    engine takes when making it keep the blocks alive until adoption."""
+
+    blocks: np.ndarray  # all ceil(L/bs) donor prompt blocks, table order
+    nfull: int  # full leading blocks to alias
+    tail: int  # donor's partial tail block to copy, -1 if none
+    length: int  # prompt tokens covered
+    first_tok: int  # the donor prefill's recorded argmax
 
 
 def _bucket_len(n: int, cache_len: int, floor: int = 8) -> int:
@@ -61,13 +92,48 @@ def _merge_admitted(arena: tm.KVCache, new: tm.KVCache, cur_tok: torch.Tensor,
     dev = arena.k.device
     dst = torch.from_numpy(np.flatnonzero(newly)).to(dev)
     src = torch.from_numpy(rows[newly].astype(np.int64)).to(dev)
-    arena.k[:, dst] = new.k[:, src]
-    arena.v[:, dst] = new.v[:, src]
+    for name in ("k", "v", "k_scale", "v_scale"):
+        pool = getattr(arena, name)
+        if pool is not None:
+            pool[:, dst] = getattr(new, name)[:, src]
     arena.pos[dst] = new.pos[src]
     arena.cursor[dst] = new.cursor[src]
     cur_tok = cur_tok.clone()
     cur_tok[dst] = first[src]
     return arena, cur_tok
+
+
+def _paged_merge_admitted(arena: tm.PagedKVCache, new: tm.KVCache, cur_tok: torch.Tensor,
+                          first: torch.Tensor, rows: torch.Tensor, newly: torch.Tensor,
+                          tl: torch.Tensor, block_size: int):
+    """Paged admission: allocate each admitted slot's ceil(L/bs) prompt
+    blocks from the free stack (slot order) and write its freshly
+    prefilled rows into the pool, the zero padding of its last block
+    included (``pos == -1`` masks it).  ``tl`` (B,) is the per-slot prompt
+    length (0 where not admitting).  The pool is updated in place; returns
+    (arena, cur_tok)."""
+    bs = block_size
+    b, sc = arena.pos.shape
+    m = arena.table.shape[1]
+    target = torch.where(newly, (tl + bs - 1) // bs, 0)
+    table, n_free, ref = tm.alloc_blocks(arena.table, arena.free, arena.n_free, arena.ref,
+                                         target, newly, m)
+    spos = torch.arange(sc, dtype=torch.int32, device=tl.device)[None, :]
+    valid = (newly[:, None] & (spos < target[:, None] * bs)).reshape(-1)
+    keep = valid.nonzero()[:, 0]
+    dst = tm.block_rows(table, bs).reshape(-1)[keep].long()
+    src_b, src_s = rows.long()[keep // sc], keep % sc
+    for name in ("k", "v", "k_scale", "v_scale"):
+        pool = getattr(arena, name)
+        if pool is not None:
+            pool[:, dst] = getattr(new, name)[:, src_b, src_s]
+    pos_new = torch.where(spos < tl[:, None], spos, -1)
+    arena = dataclasses.replace(
+        arena, table=table, n_free=n_free, ref=ref,
+        pos=torch.where(newly[:, None], pos_new, arena.pos),
+        cursor=torch.where(newly, tl.to(torch.int32), arena.cursor),
+    )
+    return arena, torch.where(newly, first[rows.long()], cur_tok)
 
 
 class ServeEngine:
@@ -78,24 +144,30 @@ class ServeEngine:
         eng = ServeEngine(params, cfg, slots=8, cache_len=512, device="cuda")
         eng.submit(Request(uid=0, prompt_ids=ids, max_new_tokens=32))
         finished = eng.run_to_completion()
+
+    ``paged_kv=None`` reads ``RGL_PAGED_KV`` (default off).  When paged,
+    ``block_size=None`` picks the largest divisor of ``cache_len`` <= 16
+    (or ``RGL_KV_BLOCK``) and ``pool_blocks=None`` sizes the pool to
+    ``slots * cache_len / block_size`` blocks (never truncates).  A smaller
+    pool gates admission on free blocks (FIFO) and, when live slots outgrow
+    it mid-decode, first asks the cache to release pins and then retires
+    the highest-indexed needy slot with ``truncated=True`` before the step
+    runs, so the device allocator never over-pops.
     """
 
     def __init__(
         self, params, cfg: TransformerConfig, *, slots: int = 8,
         cache_len: int = 512, eos_id: Optional[int] = None,
         spec_decode: Optional[bool] = None, paged_kv: Optional[bool] = None,
+        block_size: Optional[int] = None, pool_blocks: Optional[int] = None,
         prefix_share: Optional[bool] = None, device="cuda",
     ):
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the engine on {self.device}")
-        for name, flag, env, item in (
-            ("spec_decode", spec_decode, "RGL_SPEC_DECODE", "11 (speculative decode)"),
-            ("paged_kv", paged_kv, "RGL_PAGED_KV", "10 (paged KV)"),
-            ("prefix_share", prefix_share, "RGL_PREFIX_SHARE", "10 (prefix sharing)"),
-        ):
-            if (env_flag(env) if flag is None else flag):
-                raise NotImplementedError(f"{name} is not ported yet: ROADMAP Queue 1 item {item}")
+        if env_flag("RGL_SPEC_DECODE") if spec_decode is None else spec_decode:
+            raise NotImplementedError(
+                "spec_decode is not ported yet: ROADMAP Queue 1 item 11 (speculative decode)")
         self.params = params
         self.cfg = cfg
         self.slots = slots
@@ -104,8 +176,50 @@ class ServeEngine:
         self.queue: deque = deque()
         self.active: list = [None] * slots
         self.live = np.zeros(slots, bool)
+        self.paged_kv = env_flag("RGL_PAGED_KV") if paged_kv is None else bool(paged_kv)
+        # prefix sharing is a paged-arena feature: inert on a contiguous arena
+        self.prefix_share = (env_flag("RGL_PREFIX_SHARE") if prefix_share is None
+                             else bool(prefix_share)) and self.paged_kv
         self.truncations = 0  # requests retired by KV exhaustion
-        self.cache = tm.init_cache(cfg, slots, cache_len, device=self.device)
+        if block_size is None and os.environ.get("RGL_KV_BLOCK"):
+            block_size = int(os.environ["RGL_KV_BLOCK"])
+        if self.paged_kv:
+            bs = _auto_block_size(cache_len) if block_size is None else int(block_size)
+            if bs < 1 or cache_len % bs != 0:
+                raise ValueError(f"block_size={bs} must divide cache_len={cache_len}")
+            self.block_size = bs
+            self.max_blocks = cache_len // bs
+            self.pool_blocks = slots * self.max_blocks if pool_blocks is None else int(pool_blocks)
+            if self.pool_blocks < self.max_blocks:
+                raise ValueError(f"pool_blocks={self.pool_blocks} cannot hold even one "
+                                 f"full-length request ({self.max_blocks} blocks)")
+            self.cache = tm.init_paged_cache(cfg, slots, cache_len, bs, self.pool_blocks,
+                                             device=self.device)
+            # content-exact host mirrors of the device allocator: admission
+            # and every step replay its arithmetic, so exhaustion checks
+            # never read the device
+            self._free_stack: list = list(range(self.pool_blocks))
+            self._ref_host = np.zeros(self.pool_blocks, np.int32)
+            self._slot_blocks: list = [[] for _ in range(slots)]
+            self.pool_high_water = 0  # most blocks ever held at once
+            self._live_dev = torch.from_numpy(self.live.copy()).to(self.device)
+            self._live_dirty = False
+        else:
+            self.cache = tm.init_cache(cfg, slots, cache_len, device=self.device)
+        # host tripwire for the alloc_blocks sum(need) <= n_free contract and
+        # for refcount double-frees (tests/conftest.py arms it suite-wide)
+        self._kv_debug = env_flag("RGL_KV_DEBUG")
+        # prefix-sharing hooks, wired by the RAG layer: kv_pin_gate(entry) ->
+        # bool before pinning, kv_pin_reclaim(want_blocks) -> freed under
+        # pool pressure (cache pins go before any live request is truncated)
+        self.kv_pin_gate = None
+        self.kv_pin_reclaim = None
+        self.kv_pins = 0  # entries that received a prompt-block pin
+        self.kv_releases = 0  # pins released (eviction / reclaim)
+        self.kv_pinned_blocks = 0  # blocks currently held by pins
+        self.kv_shared_admits = 0  # admissions served by aliased blocks
+        self.kv_reused_tokens = 0  # prompt tokens whose prefill was skipped
+        self.kv_cow_copies = 0  # partial tail blocks copied at adoption
         self.cur_tok = torch.zeros((slots,), dtype=torch.int32, device=self.device)
         # host mirror of the device cursor: admission pins it to the prompt
         # length and every decode step advances it, so finish checks never
@@ -125,6 +239,210 @@ class ServeEngine:
         """Decode slots that remain free once the admission queue drains."""
         return max(0, int(self.slots - self.live.sum()) - len(self.queue))
 
+    # -- paged-pool host bookkeeping ------------------------------------------
+    @property
+    def _free_host(self) -> int:
+        """Free-stack depth (host mirror)."""
+        return len(self._free_stack)
+
+    def _blocks_for(self, n_tokens: int) -> int:
+        return -(-int(n_tokens) // self.block_size)
+
+    def _ids(self, ids) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(ids, np.int32)).to(self.device)
+
+    def _live_mask(self) -> torch.Tensor:
+        """Device live mask, uploaded again only when liveness changed."""
+        if self._live_dirty:
+            self._live_dev = torch.from_numpy(self.live.copy()).to(self.device)
+            self._live_dirty = False
+        return self._live_dev
+
+    def _guard_alloc(self, need_total: int, where: str) -> None:
+        """``RGL_KV_DEBUG`` tripwire: a step that would pop more blocks than
+        the stack holds would make two slots share a block on the device."""
+        if self._kv_debug and need_total > len(self._free_stack):
+            raise RuntimeError(
+                f"paged-KV alloc invariant violated at {where}: dispatch would pop "
+                f"{need_total} blocks but the free stack holds {len(self._free_stack)} "
+                f"(pool_blocks={self.pool_blocks}, pinned={self.kv_pinned_blocks}, "
+                f"live={int(self.live.sum())}, "
+                f"per-slot blocks={[len(b) for b in self._slot_blocks]})"
+            )
+
+    def _pop_host(self, slot: int, n: int) -> list:
+        """Replay ``n`` pops for ``slot`` on the host mirrors, in the device
+        allocator's order (from the top of the stack)."""
+        out = []
+        for _ in range(n):
+            blk = self._free_stack.pop()
+            self._ref_host[blk] = 1
+            self._slot_blocks[slot].append(blk)
+            out.append(blk)
+        return out
+
+    def _host_release(self, drops: dict) -> int:
+        """Replay refcount drops on the host mirrors: blocks reaching zero
+        go back in ascending id (the device's order).  Returns blocks pushed."""
+        pushed = []
+        for blk in sorted(drops):
+            r = int(self._ref_host[blk]) - drops[blk]
+            if r < 0 and self._kv_debug:
+                raise RuntimeError(
+                    f"double-free of pool block {blk}: dropping {drops[blk]} holds but "
+                    f"refcount is {int(self._ref_host[blk])} (pool_blocks={self.pool_blocks}, "
+                    f"pinned={self.kv_pinned_blocks})"
+                )
+            self._ref_host[blk] = max(r, 0)
+            if drops[blk] > 0 and r <= 0:
+                pushed.append(blk)
+        self._free_stack.extend(pushed)
+        return len(pushed)
+
+    def _free_slots_paged(self, slot_ids) -> None:
+        """Drop the named slots' holds on their blocks (device and mirrors);
+        blocks still shared or pinned stay with their other holders."""
+        mask = np.zeros(self.slots, bool)
+        mask[list(slot_ids)] = True
+        self.cache = tm.free_slot_blocks(self.cache, torch.from_numpy(mask).to(self.device))
+        drops: dict = {}
+        for i in slot_ids:
+            for blk in self._slot_blocks[i]:
+                drops[blk] = drops.get(blk, 0) + 1
+            self._slot_blocks[i] = []
+        self._host_release(drops)
+        self._live_dirty = True
+
+    def _release_retired(self, live_before: np.ndarray) -> None:
+        """Free the blocks of every slot that retired this step, at once."""
+        retired = np.where(live_before & ~self.live)[0]
+        if retired.size:
+            self._free_slots_paged(retired.tolist())
+
+    def _paged_step_need(self) -> np.ndarray:
+        """Per-slot blocks the next step's allocator pops, replayed on the
+        host mirrors."""
+        need = np.zeros(self.slots, np.int64)
+        for i in range(self.slots):
+            if self.live[i]:
+                hi = min(int(self._cursor[i]) + 1, self.cache_len)
+                need[i] = max(self._blocks_for(hi) - len(self._slot_blocks[i]), 0)
+        return need
+
+    def _reclaim_pins(self, deficit: int) -> int:
+        """Ask the cache tier to release pinned prompt blocks under pool
+        pressure, before any truncation."""
+        if self.kv_pin_reclaim is None or deficit <= 0:
+            return 0
+        return int(self.kv_pin_reclaim(int(deficit)))
+
+    def _retire_pool_exhausted(self) -> list:
+        """While the pool cannot cover every live slot's next allocation,
+        first release cache pins, then retire the highest-indexed slot that
+        needs a block (``truncated=True``) and reclaim its blocks."""
+        finished = []
+        need = self._paged_step_need()
+        self._reclaim_pins(int(need.sum()) - self._free_host)
+        while need.sum() > self._free_host:
+            i = int(np.where(need > 0)[0][-1])
+            req = self.active[i]
+            req.done = True
+            req.truncated = True
+            self.truncations += 1
+            finished.append(req)
+            self.active[i] = None
+            self.live[i] = False
+            self._free_slots_paged([i])
+            need[i] = 0
+        return finished
+
+    def _apply_paged_alloc(self) -> None:
+        """Advance the host mirrors by what the step about to run pops."""
+        need = self._paged_step_need()
+        tot = int(need.sum())
+        if tot:
+            self._guard_alloc(tot, "decode step")
+            for i in np.flatnonzero(need):
+                self._pop_host(int(i), int(need[i]))
+        self.pool_high_water = max(self.pool_high_water, self.pool_blocks - self._free_host)
+
+    # -- prefix sharing: pins, plans, adoption --------------------------------
+    def _acquire_host(self, ids) -> None:
+        self.cache = tm.acquire_blocks(self.cache, self._ids(ids))
+        for blk in ids:
+            self._ref_host[int(blk)] += 1
+
+    def _release_ids(self, ids) -> int:
+        """Drop one hold per listed block (device and mirrors); returns how
+        many blocks came back to the free stack."""
+        self.cache = tm.release_blocks(self.cache, self._ids(ids))
+        drops: dict = {}
+        for blk in ids:
+            drops[int(blk)] = drops.get(int(blk), 0) + 1
+        return self._host_release(drops)
+
+    def _pin_entry(self, entry, slot: int, req: Request, tok0: int) -> None:
+        """Pin slot ``slot``'s freshly prefilled prompt blocks to ``entry``:
+        one hold per block, the exact prompt and first token recorded, and
+        a release hook the cache calls on eviction."""
+        if getattr(entry, "kv_blocks", None) is not None:
+            return  # already pinned (by a wave-mate or earlier)
+        if self.kv_pin_gate is not None and not self.kv_pin_gate(entry):
+            return  # no longer resident: a pin would leak its blocks
+        n = len(req.prompt_ids)
+        blocks = np.asarray(self._slot_blocks[slot][:self._blocks_for(n)], np.int32)
+        if blocks.size == 0:
+            return
+        self._acquire_host(blocks)
+        entry.kv_blocks = blocks
+        entry.kv_len = n
+        entry.kv_first_tok = int(tok0)
+        entry.kv_prompt = np.asarray(req.prompt_ids, np.int32).copy()
+        entry.kv_owner = self
+        entry.kv_release = self._release_kv_pin
+        self.kv_pins += 1
+        self.kv_pinned_blocks += int(blocks.size)
+
+    def _release_kv_pin(self, entry) -> int:
+        """Release an entry's pin (eviction hook and pool-pressure reclaim).
+        Idempotent; returns the blocks that came back to the free stack."""
+        blocks = getattr(entry, "kv_blocks", None)
+        if blocks is None:
+            return 0
+        entry.kv_blocks = None
+        entry.kv_prompt = None
+        entry.kv_owner = None
+        entry.kv_release = None
+        self.kv_releases += 1
+        self.kv_pinned_blocks -= int(np.asarray(blocks).size)
+        return self._release_ids(list(np.asarray(blocks)))
+
+    def _plan_share(self, req: Request) -> Optional[_SharePlan]:
+        """Validate ``req.shared_prefix`` against its pin (this pool, the
+        same prompt) and snapshot it, taking one hold per donor block until
+        adoption.  None (no holds) when the request must prefill."""
+        entry = req.shared_prefix
+        if entry is None:
+            return None
+        blocks = getattr(entry, "kv_blocks", None)
+        if blocks is None or getattr(entry, "kv_owner", None) is not self:
+            return None
+        kp = getattr(entry, "kv_prompt", None)
+        pi = np.asarray(req.prompt_ids, np.int32)
+        if kp is None or len(kp) != len(pi) or not np.array_equal(kp, pi):
+            return None
+        n = int(entry.kv_len)
+        blocks = np.asarray(blocks, np.int32)
+        plan = _SharePlan(blocks=blocks, nfull=n // self.block_size,
+                          tail=int(blocks[-1]) if n % self.block_size else -1, length=n,
+                          first_tok=int(entry.kv_first_tok))
+        self._acquire_host(blocks)
+        return plan
+
+    def _drop_plan(self, plan: _SharePlan) -> None:
+        """Release a plan's holds without admitting it."""
+        self._release_ids(list(plan.blocks))
+
     # -- admission -----------------------------------------------------------
     def submit(self, req: Request) -> None:
         if len(req.prompt_ids) >= self.cache_len:
@@ -136,14 +454,17 @@ class ServeEngine:
 
     def abort(self, reason: str = "aborted") -> list:
         """Retire every queued and live request (``failed=True``, partial
-        ``out_tokens`` kept).  The engine is reusable afterwards.  Returns
-        the aborted requests."""
+        ``out_tokens`` kept) and return live slots' paged blocks to the
+        pool.  The engine is reusable afterwards.  Returns the aborted
+        requests."""
         out = []
-        for i in range(self.slots):
-            if self.live[i]:
-                out.append(self.active[i])
-                self.active[i] = None
-                self.live[i] = False
+        live_idx = [i for i in range(self.slots) if self.live[i]]
+        for i in live_idx:
+            out.append(self.active[i])
+            self.active[i] = None
+            self.live[i] = False
+        if self.paged_kv and live_idx:
+            self._free_slots_paged(live_idx)
         out.extend(self.queue)
         self.queue.clear()
         for req in out:
@@ -159,56 +480,146 @@ class ServeEngine:
         finally:
             self.admit_seconds += time.perf_counter() - t0
 
+    def _paged_take(self, n_free_slots: int) -> tuple[int, dict]:
+        """How many queued requests the pool admits now (FIFO: a head that
+        does not fit blocks the rest), each needing ceil((L+1)/bs) blocks
+        less any it aliases; pins are released before a request is refused.
+        Returns (take, {queue position: _SharePlan})."""
+        plans: dict = {}
+        take = taken = 0
+        for r in list(self.queue)[:n_free_slots]:
+            full_need = self._blocks_for(min(len(r.prompt_ids) + 1, self.cache_len))
+            plan = self._plan_share(r) if self.prefix_share else None
+            need = full_need - plan.nfull if plan is not None else full_need
+            if need > self._free_host - taken:
+                self._reclaim_pins(need - (self._free_host - taken))
+            if need > self._free_host - taken:
+                if plan is not None:
+                    self._drop_plan(plan)
+                break
+            if plan is not None:
+                plans[take] = plan
+            taken += need
+            take += 1
+        return take, plans
+
     def _admit_inner(self) -> list:
-        """Refill free slots with one masked batched prefill.  Returns the
-        requests that finish AT admission (first token hits EOS, or
-        ``max_new_tokens == 1``); they never occupy a live slot."""
+        """Refill free slots: one masked batched prefill for fresh prompts,
+        one adoption for shared ones.  Returns the requests that finish AT
+        admission (first token hits EOS, or ``max_new_tokens == 1``); they
+        never occupy a live slot."""
         free = [i for i in range(self.slots) if not self.live[i]]
-        take = min(len(free), len(self.queue))
+        if self.paged_kv:
+            take, plans = self._paged_take(len(free))
+        else:
+            take, plans = min(len(free), len(self.queue)), {}
         if take == 0:
             return []
         reqs = [self.queue.popleft() for _ in range(take)]
         slot_ids = free[:take]
-        # one batched prefill: batch padded to `slots` rows, lengths padded
-        # to a shared power-of-two bucket
-        bucket = _bucket_len(max(len(r.prompt_ids) for r in reqs), self.cache_len)
+        first_by_slot = np.zeros(self.slots, np.int64)
+        fresh_pairs = [(j, i) for j, i in enumerate(slot_ids) if j not in plans]
+        if fresh_pairs:
+            self._prefill_fresh(reqs, fresh_pairs, first_by_slot)
+        if plans:
+            self._adopt_shared(slot_ids, plans, first_by_slot)
+        if self.paged_kv:
+            self.pool_high_water = max(self.pool_high_water, self.pool_blocks - self._free_host)
+        finished = []
+        dead_at_admission = []
+        for j, (req, i) in enumerate(zip(reqs, slot_ids)):
+            tok0 = int(first_by_slot[i])
+            req.out_tokens.append(tok0)
+            self.emitted_tokens += 1
+            self._cursor[i] = len(req.prompt_ids)
+            if self.prefix_share and j not in plans and req.pin_to is not None:
+                self._pin_entry(req.pin_to, i, req, tok0)  # donor side
+            hit_eos = self.eos_id is not None and tok0 == self.eos_id
+            if hit_eos or len(req.out_tokens) >= req.max_new_tokens:
+                # done at admission: the slot never goes live
+                req.done = True
+                finished.append(req)
+                dead_at_admission.append(i)
+                continue
+            self.active[i] = req
+            self.live[i] = True
+        if self.paged_kv and dead_at_admission:
+            self._free_slots_paged(dead_at_admission)
+        return finished
+
+    def _prefill_fresh(self, reqs: list, fresh_pairs: list, first_by_slot: np.ndarray) -> None:
+        """One batched prefill (batch padded to `slots` rows, lengths to a
+        shared power-of-two bucket) merged into the arena."""
+        bucket = _bucket_len(max(len(reqs[j].prompt_ids) for j, _ in fresh_pairs),
+                             self.cache_len)
         toks = np.zeros((self.slots, bucket), np.int32)
         tl = np.zeros((self.slots,), np.int32)
-        for f, r in enumerate(reqs):
-            toks[f, :len(r.prompt_ids)] = np.asarray(r.prompt_ids, np.int32)
-            tl[f] = len(r.prompt_ids)
+        for f, (j, _) in enumerate(fresh_pairs):
+            n = len(reqs[j].prompt_ids)  # submit() guarantees n < cache_len
+            toks[f, :n] = np.asarray(reqs[j].prompt_ids, np.int32)
+            tl[f] = n
         logits, fresh = tm.prefill(
             self.params, torch.from_numpy(toks).to(self.device),
             torch.from_numpy(tl).to(self.device), self.cfg, self.cache_len,
         )
         self.prefill_batches += 1
-        self.prefill_rows += take
+        self.prefill_rows += len(fresh_pairs)
         first = torch.argmax(logits, dim=-1).to(torch.int32)  # (slots,)
         rows = np.zeros(self.slots, np.int64)
         newly = np.zeros(self.slots, bool)
-        for f, i in enumerate(slot_ids):
-            rows[i] = f
-            newly[i] = True
-        self.cache, self.cur_tok = _merge_admitted(
-            self.cache, fresh, self.cur_tok, first, rows, newly
-        )
+        tl_slot = np.zeros(self.slots, np.int32)
+        for f, (_, i) in enumerate(fresh_pairs):
+            rows[i], newly[i], tl_slot[i] = f, True, tl[f]
+        if self.paged_kv:
+            self._guard_alloc(sum(self._blocks_for(int(t)) for t in tl_slot),
+                              "admission prefill merge")
+            self.cache, self.cur_tok = _paged_merge_admitted(
+                self.cache, fresh, self.cur_tok, first, self._ids(rows),
+                torch.from_numpy(newly).to(self.device), self._ids(tl_slot), self.block_size,
+            )
+            for f, (_, i) in enumerate(fresh_pairs):  # slot order, as the device pops
+                self._pop_host(i, self._blocks_for(int(tl[f])))
+            self._live_dirty = True
+        else:
+            self.cache, self.cur_tok = _merge_admitted(self.cache, fresh, self.cur_tok, first,
+                                                       rows, newly)
         first_np = first.cpu().numpy()
-        finished = []
-        for f, (req, i) in enumerate(zip(reqs, slot_ids)):
-            tok0 = int(first_np[f])
-            req.out_tokens.append(tok0)
-            self.emitted_tokens += 1
-            self._cursor[i] = len(req.prompt_ids)
-            hit_eos = self.eos_id is not None and tok0 == self.eos_id
-            if hit_eos or len(req.out_tokens) >= req.max_new_tokens:
-                # done at admission: the arena row was written but the slot
-                # never goes live, so the next wave simply reuses it
-                req.done = True
-                finished.append(req)
-                continue
-            self.active[i] = req
-            self.live[i] = True
-        return finished
+        for f, (_, i) in enumerate(fresh_pairs):
+            first_by_slot[i] = int(first_np[f])
+
+    def _adopt_shared(self, slot_ids: list, plans: dict, first_by_slot: np.ndarray) -> None:
+        """Alias each planned request's donor blocks into its slot (one
+        ``tm.adopt_prefix_blocks`` call) and replay it on the mirrors: tail
+        pops in slot order, then the release of the tail sources' holds."""
+        mask = np.zeros(self.slots, bool)
+        src_table = np.full((self.slots, self.max_blocks), -1, np.int32)
+        length = np.zeros(self.slots, np.int32)
+        tail = np.full(self.slots, -1, np.int32)
+        firsts = np.zeros(self.slots, np.int32)
+        for j, plan in plans.items():
+            i = slot_ids[j]
+            mask[i] = True
+            src_table[i, :plan.nfull] = plan.blocks[:plan.nfull]
+            length[i], tail[i], firsts[i] = plan.length, plan.tail, plan.first_tok
+            first_by_slot[i] = plan.first_tok
+        self._guard_alloc(int((tail >= 0).sum()), "prefix-share adopt")
+        self.cache, self.cur_tok = tm.adopt_prefix_blocks(
+            self.cache, self.cur_tok, torch.from_numpy(mask).to(self.device),
+            self._ids(src_table), self._ids(length), self._ids(tail), self._ids(firsts),
+            self.block_size,
+        )
+        tail_drops: dict = {}
+        for j in sorted(plans):
+            plan, i = plans[j], slot_ids[j]
+            self._slot_blocks[i] = [int(b) for b in plan.blocks[:plan.nfull]]
+            if plan.tail >= 0:
+                self._pop_host(i, 1)
+                tail_drops[plan.tail] = tail_drops.get(plan.tail, 0) + 1
+                self.kv_cow_copies += 1
+            self.kv_shared_admits += 1
+            self.kv_reused_tokens += plan.length
+        self._host_release(tail_drops)
+        self._live_dirty = True
 
     def _finish_check(self, i: int, req: Request, last_tok: int, finished: list) -> None:
         hit_eos = self.eos_id is not None and last_tok == self.eos_id
@@ -226,6 +637,8 @@ class ServeEngine:
     # -- one decode step for every live slot ----------------------------------
     def step(self) -> list:
         finished = self._admit()
+        if self.paged_kv and self.live.any():
+            finished.extend(self._retire_pool_exhausted())
         if not self.live.any():
             return finished
         finished.extend(self._step_one())
@@ -234,13 +647,19 @@ class ServeEngine:
     def _step_one(self) -> list:
         """One-token decode: one decode step emits one token per slot."""
         t0 = time.perf_counter()
-        nxt, self.cache = tm.serve_step(self.params, self.cache, self.cur_tok, self.cfg)
+        if self.paged_kv:
+            self._apply_paged_alloc()
+            nxt, self.cache = tm.paged_serve_step(self.params, self.cache, self.cur_tok,
+                                                  self._live_mask(), self.cfg, self.block_size)
+        else:
+            nxt, self.cache = tm.serve_step(self.params, self.cache, self.cur_tok, self.cfg)
         self.cur_tok = nxt
-        toks = nxt.cpu().numpy()  # the step's one host sync
+        toks = nxt.cpu().numpy()  # the step's token sync
         self.decode_seconds += time.perf_counter() - t0
         self.decode_steps += 1
         self._cursor += 1  # decode_step advances every slot's cursor
         finished = []
+        live_before = self.live.copy()
         for i, req in enumerate(self.active):
             if req is None or not self.live[i]:
                 continue
@@ -250,12 +669,14 @@ class ServeEngine:
             self.decode_tokens += 1
             self.slot_steps += 1
             self._finish_check(i, req, t, finished)
+        if self.paged_kv:
+            self._release_retired(live_before)
         return finished
 
     def decode_stats(self) -> dict:
         """Dispatch-amortization telemetry (the reference's keys; the
-        speculative and paged ones at their one-token, contiguous values)."""
-        return {
+        speculative ones at their one-token values)."""
+        stats = {
             "spec_decode": False,
             "draft_window": 1,
             "decode_steps": self.decode_steps,
@@ -266,13 +687,27 @@ class ServeEngine:
             "draft_accepted": 0,
             "tokens_per_step": self.decode_tokens / max(self.slot_steps, 1),
             "draft_accept_rate": 0.0,
-            "paged_kv": False,
+            "paged_kv": self.paged_kv,
             "truncations": self.truncations,
-            "prefix_share": False,
+            "prefix_share": self.prefix_share,
             "prefill_batches": self.prefill_batches,
             "prefill_rows": self.prefill_rows,
             "admit_seconds": self.admit_seconds,
         }
+        if self.paged_kv:
+            stats.update(
+                block_size=self.block_size,
+                pool_blocks=self.pool_blocks,
+                pool_high_water_blocks=self.pool_high_water,
+                pool_free_blocks=self._free_host,
+                kv_shared_admits=self.kv_shared_admits,
+                kv_reused_tokens=self.kv_reused_tokens,
+                kv_cow_copies=self.kv_cow_copies,
+                kv_pins=self.kv_pins,
+                kv_releases=self.kv_releases,
+                kv_pinned_blocks=self.kv_pinned_blocks,
+            )
+        return stats
 
     def stats_ns(self) -> dict:
         return {"decode": self.decode_stats()}

@@ -9,11 +9,15 @@ inside one engine.  Every admission wave runs ONE batched
 ``RGLPipeline.retrieve_many`` call over its cache misses (padded to a fixed
 shape), and a policy-driven :class:`~repro_torch.serving.cache.RetrievalCache`
 keyed on quantized query embeddings lets repeated queries skip retrieval.
-Generation rides the slot-based :class:`~repro_torch.serving.engine.ServeEngine`.
+Generation rides the slot-based :class:`~repro_torch.serving.engine.ServeEngine`
+over a contiguous or paged KV arena; with ``prefix_share`` a cache entry
+pins its prefilled prompt's blocks and a later identical prompt aliases them.
 
-This port runs sync wave admission.  Async prefetch, continuous admission,
-fault tolerance (retries, timeouts, deadlines, shedding) and online mutation
-are not ported yet; asking for them raises.
+This port runs the sync schedule, with **wave** admission (one retrieval
+launch and collect a wave) or **continuous** admission (one launch and
+collect per free slot, single-request waves).  Async prefetch, fault
+tolerance (retries, timeouts, deadlines, shedding), speculative decode and
+online mutation are not ported yet; asking for them raises.
 """
 from __future__ import annotations
 
@@ -36,10 +40,7 @@ from repro_torch.serving.stats import flatten_stats
 # yet, each with its ROADMAP Queue 1 item
 _NOT_PORTED = {
     "prefetch": (False, "12 (async prefetch)"),
-    "admission": ("wave", "10 (continuous admission)"),
     "spec_decode": (False, "11 (speculative decode)"),
-    "paged_kv": (False, "10 (paged KV)"),
-    "prefix_share": (False, "10 (prefix sharing)"),
     "retrieval_timeout_s": (None, "12 (fault tolerance)"),
     "max_retries": (0, "12 (fault tolerance)"),
     "max_pending": (0, "12 (load shedding)"),
@@ -105,13 +106,24 @@ class RAGServeEngine:
         self.slots = resolved.slots
         self.engine = ServeEngine(
             params, cfg, slots=resolved.slots, cache_len=resolved.cache_len,
-            eos_id=resolved.eos_id, spec_decode=False, paged_kv=False,
-            prefix_share=False, device=self.device,
+            eos_id=resolved.eos_id, spec_decode=False, paged_kv=resolved.paged_kv,
+            block_size=resolved.kv_block_size, pool_blocks=resolved.kv_pool_blocks,
+            prefix_share=resolved.prefix_share, device=self.device,
         )
         self.cache = RetrievalCache(capacity=resolved.cache_capacity,
                                     quant_eps=resolved.quant_eps,
                                     policy=resolved.cache_policy, ttl=resolved.cache_ttl)
-        self.prefetcher = AdmissionPrefetcher(pipeline, self.cache, wave_size=resolved.slots)
+        if self.engine.prefix_share:
+            # pins attach only to entries still resident, and pool pressure
+            # releases this engine's pins before it truncates a live request
+            self.engine.kv_pin_gate = self.cache.is_resident
+            self.engine.kv_pin_reclaim = lambda n: self.cache.reclaim_kv(n, owner=self.engine)
+        self.admission = resolved.admission
+        # continuous admission launches single-request waves, so retrieval
+        # pads to 1 row instead of `slots` (rows are independent: same results)
+        self.prefetcher = AdmissionPrefetcher(
+            pipeline, self.cache,
+            wave_size=1 if self.admission == "continuous" else resolved.slots)
         self.pending: deque = deque()
         self._inflight: dict = {}  # admission ticket -> RAGRequest
         self._next_ticket = 0
@@ -154,8 +166,9 @@ class RAGServeEngine:
         self.pending.append(req)
         return True
 
-    def _take_wave(self) -> list:
-        return [self.pending.popleft() for _ in range(min(self.slots, len(self.pending)))]
+    def _take_wave(self, limit: Optional[int] = None) -> list:
+        cap = self.slots if limit is None else limit
+        return [self.pending.popleft() for _ in range(min(cap, len(self.pending)))]
 
     def _tokenize_and_admit(self, resolved: list) -> None:
         """Stage 4+5 handoff: linearize each resolved request's retrieved
@@ -170,12 +183,25 @@ class RAGServeEngine:
             r.prompt_ids = ids[mask]
             inner = Request(uid=r.uid, prompt_ids=r.prompt_ids,
                             max_new_tokens=r.max_new_tokens, ticket=self._next_ticket)
+            if self.engine.prefix_share:
+                # donor side: a fresh admission pins its prompt blocks to the
+                # entry; consumer side when the entry already pins this pool's
+                # blocks (admission re-validates the exact prompt)
+                inner.pin_to = e
+                if e.kv_blocks is not None and e.kv_owner is self.engine:
+                    inner.shared_prefix = e
             self._inflight[inner.ticket] = r
             self._next_ticket += 1
             self.engine.submit(inner)
 
     def _admit_sync(self) -> None:
-        """Launch one wave and collect it immediately."""
+        """Launch one wave and collect it immediately; continuous admission
+        does so one request per free slot."""
+        if self.admission == "continuous":
+            while self.engine.free_slots > 0 and self.pending:
+                self.prefetcher.launch(self._take_wave(1))
+                self._tokenize_and_admit(self.prefetcher.collect())
+            return
         reqs = self._take_wave()
         if reqs:
             self.prefetcher.launch(reqs)
@@ -183,7 +209,7 @@ class RAGServeEngine:
 
     # -- stepping -------------------------------------------------------------
     def step(self) -> list:
-        """One engine step: wave admission + one decode step.  Returns the
+        """One engine step: admission + one decode step.  Returns the
         RAG requests that finished this step."""
         self._admit_sync()
         finished_inner = self.engine.step()
@@ -247,7 +273,7 @@ class RAGServeEngine:
                 "retrieved_queries": self.retrieved_queries,
                 "retrieval_seconds": self.retrieval_seconds,
                 "prefetch": False,
-                "admission": "wave",
+                "admission": self.admission,
             },
             "prefetch": self.prefetcher.stats(),
             "decode": self.engine.decode_stats(),

@@ -831,3 +831,131 @@ def test_ivf_serve_on_the_card_matches_the_cpu(dev):
         assert np.array_equal(a.retrieved_nodes, b.retrieved_nodes), uid
         assert np.array_equal(a.prompt_ids, b.prompt_ids), uid
         assert a.out_tokens == b.out_tokens, uid
+
+
+def _reduced_serve_args(**kw):
+    import argparse
+
+    base = dict(requests=12, slots=4, max_new=6, nodes=3000, index="brute", shards=None,
+                retrieval="auto", cache_policy="lru", cache_len=112)
+    return argparse.Namespace(**dict(base, **kw))
+
+
+def _host_params(p):
+    return {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v.cpu())
+            for k, v in p.items()}
+
+
+def _serve_card_and_cpu(cfg, q_ids, **kw):
+    from repro_torch.launch.serve import _serve_rag
+
+    card = _serve_rag(cfg, _reduced_serve_args(device="cuda", **kw), q_ids=q_ids)
+    cpu = _serve_rag(cfg, _reduced_serve_args(device="cpu", **kw), q_ids=q_ids,
+                     params=_host_params(card["params"]))
+    return card, cpu
+
+
+def _same_serve(card, cpu):
+    """Tokens, retrievals, prompts, truncated flags, the final allocator
+    state and the pin counters of two serves agree exactly."""
+    runs = [{r.uid: r for r in out["done"]} for out in (card, cpu)]
+    assert sorted(runs[0]) == sorted(runs[1])
+    for uid, a in runs[0].items():
+        b = runs[1][uid]
+        assert np.array_equal(a.retrieved_nodes, b.retrieved_nodes), uid
+        assert np.array_equal(a.prompt_ids, b.prompt_ids), uid
+        assert (a.out_tokens, a.truncated) == (b.out_tokens, b.truncated), uid
+    ea, eb = card["engine"].engine, cpu["engine"].engine
+    for name in ("table", "free", "n_free", "ref"):
+        assert torch.equal(getattr(ea.cache, name).cpu(), getattr(eb.cache, name)), name
+    sa, sb = card["stats"], cpu["stats"]
+    for key in ("hits", "misses", "truncations", "kv_shared_admits", "kv_reused_tokens",
+                "kv_cow_copies", "kv_pins", "kv_releases", "kv_pinned_blocks",
+                "pool_high_water_blocks"):
+        assert sa[key] == sb[key], key
+
+
+def test_paged_share_continuous_serve_matches_the_cpu(dev):
+    """A reduced paged + prefix-share + continuous serve (4 repeated
+    queries; a pool that holds every pin, so each repeat shares) on the card
+    and on the CPU with the same weights."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("starcoder2-3b").reduced_cfg
+    q_ids = np.r_[np.arange(8) * 37, np.arange(4) * 37]
+    card, cpu = _serve_card_and_cpu(cfg, q_ids, paged_kv=True, prefix_share=True,
+                                    admission="continuous", pool_blocks=96)
+    _same_serve(card, cpu)
+    assert card["stats"]["kv_shared_admits"] == 4
+
+
+def test_kv_quant_decode_on_the_card_matches_the_cpu(dev):
+    """int8 KV at the reduced fp32 config, both arenas: the card's tokens
+    equal the CPU's.  The fp32 K/V rows going into the quantization come
+    from GEMMs that sum in another order on each device, so a row's int8
+    value may differ by one level where it straddles a rounding boundary,
+    and a bf16 scale by one bf16 ulp."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_config("starcoder2-3b").reduced_cfg, kv_quant=True)
+    params = tm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card_params = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict) else v.to(dev))
+                   for k, v in params.items()}
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab, int(rng.integers(5, 40))).astype(np.int32)
+               for _ in range(6)]
+    for paged in (False, True):
+        outs, caches = [], []
+        for p, d in ((card_params, "cuda"), (params, "cpu")):
+            eng = ServeEngine(p, cfg, slots=3, cache_len=64, paged_kv=paged, device=d)
+            for u, ids in enumerate(prompts):
+                eng.submit(Request(uid=u, prompt_ids=ids, max_new_tokens=12))
+            outs.append({r.uid: r.out_tokens for r in eng.run_to_completion()})
+            caches.append(eng.cache)
+        assert outs[0] == outs[1], paged
+        for name in ("k", "v"):
+            diff = getattr(caches[0], name).cpu().int() - getattr(caches[1], name).int()
+            assert diff.abs().max().item() <= 1, (paged, name)
+        for name in ("k_scale", "v_scale"):
+            torch.testing.assert_close(getattr(caches[0], name).cpu(), getattr(caches[1], name),
+                                       rtol=2**-7, atol=0)
+
+
+def test_host_mirrors_equal_the_card_allocator_after_churn(dev):
+    """Waves of requests through a pool that gates admission and truncates,
+    with prefix sharing: after every step the engine's host mirrors equal
+    the allocator's tensors on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.serving.cache import CachedRetrieval
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    cfg = get_config("starcoder2-3b").reduced_cfg
+    params = tm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    eng = ServeEngine(params, cfg, slots=3, cache_len=48, paged_kv=True, block_size=8,
+                      pool_blocks=9, prefix_share=True, device=dev)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, cfg.vocab, int(n)).astype(np.int32) for n in (13, 7, 20, 9)]
+    z = np.empty(0, np.int32)
+    entries = [CachedRetrieval(nodes=z, mask=np.empty(0, bool), dist=z, seeds=z)
+               for _ in prompts]
+    truncated = 0
+    for wave in range(4):
+        for u, (p, e) in enumerate(zip(prompts, entries)):
+            eng.submit(Request(uid=10 * wave + u, prompt_ids=p, max_new_tokens=30, pin_to=e,
+                               shared_prefix=e if e.kv_blocks is not None else None))
+        while eng.queue or eng.live.any():
+            truncated += sum(r.truncated for r in eng.step())
+            depth = len(eng._free_stack)
+            assert int(eng.cache.n_free) == depth
+            assert eng.cache.free[:depth].cpu().tolist() == eng._free_stack
+            assert eng.cache.ref.cpu().tolist() == eng._ref_host.tolist()
+            table = eng.cache.table.cpu().numpy()
+            for i, blks in enumerate(eng._slot_blocks):
+                assert table[i, :len(blks)].tolist() == blks
+                assert (table[i, len(blks):] == -1).all()
+    assert truncated > 0 and eng.kv_shared_admits > 0

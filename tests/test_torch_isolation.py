@@ -54,19 +54,23 @@ def _entry_points():
     return {
         "init_params": lambda: tm.init_params(cfg, torch.Generator()),
         "init_cache": lambda: tm.init_cache(cfg, 1, 8),
+        "init_paged_cache": lambda: tm.init_paged_cache(cfg, 1, 16, 8, 2),
         "csr_to_ell": lambda: csr_to_ell(g),
         "BruteIndex.build": lambda: BruteIndex.build(g.node_feat),
         "IVFIndex.build": lambda: IVFIndex.build(g.node_feat),
         "ShardedIndex.build": lambda: ShardedIndex.build(g.node_feat, n_shards=2, inner="ivf"),
         "RGLPipeline": lambda: RGLPipeline(graph=ell, index=None, node_emb=ell.node_feat),
         "ServeEngine": lambda: ServeEngine(params, cfg, slots=1, cache_len=8),
+        "paged ServeEngine": lambda: ServeEngine(params, cfg, slots=1, cache_len=16,
+                                                 paged_kv=True, prefix_share=True),
         "launch.train": lambda: train.main(["--arch", "starcoder2-3b", "--steps", "1"]),
     }
 
 
-@pytest.mark.parametrize("name", ["init_params", "init_cache", "csr_to_ell", "BruteIndex.build",
-                                  "IVFIndex.build", "ShardedIndex.build", "RGLPipeline",
-                                  "ServeEngine", "launch.train"])
+@pytest.mark.parametrize("name", ["init_params", "init_cache", "init_paged_cache", "csr_to_ell",
+                                  "BruteIndex.build", "IVFIndex.build", "ShardedIndex.build",
+                                  "RGLPipeline", "ServeEngine", "paged ServeEngine",
+                                  "launch.train"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour of a machine without CUDA")

@@ -160,8 +160,8 @@ def test_abort_and_drain(stack):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(prefetch=True), "item 12"), (dict(admission="continuous"), "item 10"),
-    (dict(spec_decode=True), "item 11"), (dict(paged_kv=True), "item 10"),
+    (dict(prefetch=True), "item 12"), (dict(prefetch=True, admission="continuous"), "item 12"),
+    (dict(spec_decode=True), "item 11"), (dict(spec_decode=True, paged_kv=True), "item 11"),
     (dict(max_retries=2), "item 12"), (dict(max_pending=4), "item 12"),
     (dict(compact_every=3), "item 13"),
 ])
