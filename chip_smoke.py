@@ -17,6 +17,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 4. strategies: one Q = 4 wave of each of bfs, dense, steiner and ppr on the
    same graph through the compact and the dense backend; rows that did not
    overflow must agree exactly;
+4b. naive oracle: 16 seeded queries of 4 seeds per strategy through the
+   batched retrieval on the card (bfs 3 hops, dense 2, steiner 4, at most
+   32 nodes; ppr 24 nodes, 8 iterations) against the pure-Python baselines
+   of ``repro_torch.core.naive`` on the host (the first 16, 16, 8 and 4
+   queries): bfs lists equal, ppr's top-12 sets equal up to float ties,
+   steiner and dense by their properties; both sides' seconds printed;
 5. main path: ``repro_torch.launch.serve._serve_rag`` serves 8 distinct
    requests plus 4 repeats through ``RAGServeEngine`` with the full-width,
    full-depth StarCoder2-3B config in bf16 (random weights from a seed), the
@@ -34,6 +40,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    asserted, its allocator checked after the drain, its decode profiled;
    then reduced fp32 paged serves (share + continuous, int8, a small pool)
    on the card against the CPU, allocator state and pin counters included;
+5c. speculative decode: the same mix and weights at ``draft_window`` 4
+   over the contiguous arena, the paged arena with prefix sharing, and
+   paged + share with int8 KV, each run's tokens compared with the
+   one-token serve of the same arena (bf16: agreement reported; each uid
+   that differs shows its first divergent step and the one-token serve's
+   logit margins there, and must be a near-tie), launches asserted, decode
+   profiled; then the reduced fp32 gate: spec tokens equal one-token tokens
+   on the card exactly, and the card equals the CPU (contiguous, paged +
+   share, paged + share + int8 under continuous admission);
 6. ell_spmm: the ``ell_aggregate`` op driven at the regime of the TPU
    kernel it replaces (Q = 64, M = 1024, K = 32 and Q = 32, M = 256, K = 16,
    D = 128; its launches counted), and the kernel against its plain version
@@ -502,6 +517,130 @@ def strategy_phase(ell, seeds: torch.Tensor) -> None:
             print(json.dumps({"strategy_wave": line}), flush=True)
 
 
+# ------------------------------------------------------------ naive oracle ----
+# the paper's scaling comparison at its own scale: bfs, dense and steiner at
+# the hops and sizes of the reference's retrieval-scaling benchmark, ppr as
+# its PPR test runs it; the naive side runs the first NAIVE_QUERIES[s] of
+# the 16 queries (steiner and ppr take seconds a query in Python)
+NAIVE_KW = {"bfs": dict(max_hops=3, max_nodes=32), "dense": dict(max_hops=2, max_nodes=32),
+            "steiner": dict(max_hops=4, max_nodes=32), "ppr": dict(max_nodes=24, n_iter=8)}
+NAIVE_QUERIES = {"bfs": 16, "dense": 16, "steiner": 8, "ppr": 4}
+
+
+def naive_call(adj: dict, strategy: str, seeds: list) -> list:
+    from repro_torch.core import naive
+
+    kw = NAIVE_KW[strategy]
+    if strategy == "ppr":
+        return naive.ppr_subgraph(adj, seeds, kw["max_nodes"], n_iter=kw["n_iter"])
+    fn = {"bfs": naive.bfs_subgraph, "dense": naive.dense_subgraph,
+          "steiner": naive.steiner_subgraph}[strategy]
+    return fn(adj, seeds, kw["max_hops"], kw["max_nodes"])
+
+
+def connected_within(nodes: set, adj: dict) -> set:
+    """The members of ``nodes`` reachable from one of them inside it."""
+    start = next(iter(nodes))
+    seen, frontier = {start}, [start]
+    while frontier:
+        nxt = []
+        for u in frontier:
+            for w in adj[u]:
+                if w in nodes and w not in seen:
+                    seen.add(w)
+                    nxt.append(w)
+        frontier = nxt
+    return seen
+
+
+def naive_oracle_phase(card: str, g, ell, n_queries: int = 16) -> dict:
+    """The port's batched retrieval on the card (``retrieve_subgraph``,
+    ``retrieval_mode="auto"``, 4 queries a call) against the pure-Python
+    baselines of ``repro_torch.core.naive`` on the host, on the same graph
+    and seeded queries.  Held where the reference's own tests hold them:
+    bfs lists equal; ppr's top-12 set equal up to float ties (nodes scored
+    above the 12th naive score by more than 1e-9 of it are in both sets, and
+    every batched member scores within that of it); steiner keeps the
+    terminals and is at most 2x + 4 the naive tree's size; dense keeps the
+    seeds and is no sparser than bfs at the same radius less 2 edges.  How
+    many steiner outputs connect their terminals is counted, not held: at 4
+    hops on a large graph terminals further apart than the Voronoi cells
+    reach stay apart, in the reference's batched Steiner (which the port's
+    equals on the CPU) and in the naive tree alike.  Times are reported, not
+    claimed."""
+    from repro_torch.core import graph_retrieval as gr
+    from repro_torch.core import naive
+
+    t0 = time.perf_counter()
+    adj = g.to_adj_dict()
+    adj_s = time.perf_counter() - t0
+    seeds = np.random.default_rng(21).integers(0, g.num_nodes, (n_queries, 4)).astype(np.int32)
+    chunks = [torch.from_numpy(seeds[i:i + 4]).cuda() for i in range(0, n_queries, 4)]
+
+    def batched(strategy, **kw):
+        subs = [gr.retrieve_subgraph(ell, c, strategy, **kw) for c in chunks]
+        torch.cuda.synchronize()
+        return [[int(v) for v, m in zip(n, k) if m] for s in subs
+                for n, k in zip(s.nodes.cpu().tolist(), s.mask.cpu().tolist())]
+
+    lines = {}
+    for strategy, kw in NAIVE_KW.items():
+        batched(strategy, **kw)  # warm
+        t0 = time.perf_counter()
+        got = batched(strategy, **kw)
+        batched_s = time.perf_counter() - t0
+        nq = NAIVE_QUERIES[strategy]
+        t0 = time.perf_counter()
+        want = [naive_call(adj, strategy, sorted(set(row.tolist()))) for row in seeds[:nq]]
+        naive_s = time.perf_counter() - t0
+        checks = {}
+        if strategy == "bfs":
+            assert got[:nq] == want, "batched bfs differs from the naive baseline"
+            checks["lists_equal"] = nq
+        elif strategy == "ppr":
+            exact = 0
+            for row, a, b in zip(seeds, got, want):
+                p = naive.ppr_scores(adj, sorted(set(row.tolist())), n_iter=kw["n_iter"])
+                kth = p[b[min(11, len(b) - 1)]]
+                tol = 1e-9 * kth
+                must = {u for u in b[:12] if p[u] > kth + tol}
+                assert must <= set(a[:12]), ("ppr", row.tolist())
+                assert all(p.get(u, 0.0) >= kth - tol for u in a[:12]), ("ppr", row.tolist())
+                exact += set(a[:12]) == set(b[:12])
+            checks["top12_sets_equal"] = exact
+            checks["top12_equal_up_to_ties"] = nq
+        elif strategy == "steiner":
+            conn = {"batched": 0, "naive": 0}
+            for row, a, b in zip(seeds, got, want):
+                terminals = set(row.tolist())
+                assert terminals <= set(a), ("steiner terminals", row.tolist())
+                assert len(a) <= 2 * len(b) + 4, ("steiner size", len(a), len(b))
+                conn["batched"] += terminals <= connected_within(set(a), adj)
+                conn["naive"] += terminals <= connected_within(set(b), adj)
+            checks["terminals_kept"] = nq
+            checks["terminals_connected"] = conn
+        else:
+            bfs_kw = dict(max_hops=kw["max_hops"], max_nodes=kw["max_nodes"])
+            ball = batched("bfs", **bfs_kw)
+
+            def internal(nodes):
+                members = set(nodes)
+                return sum(1 for u in members for w in adj[u] if w in members)
+
+            for row, a, b in zip(seeds, got, ball):
+                assert set(row.tolist()) <= set(a), ("dense seeds", row.tolist())
+                assert internal(a) >= internal(b) - 2, ("dense density", row.tolist())
+            checks["seeds_kept_and_dense"] = n_queries
+        lines[strategy] = {**kw, "naive_queries": nq, "naive_s": naive_s,
+                           "naive_s_per_query": naive_s / nq, "batched_queries": n_queries,
+                           "batched_s": batched_s, "batched_s_per_query": batched_s / n_queries,
+                           **checks}
+    rec = {"naive_oracle": f"{g.num_nodes} nodes, {n_queries} seeded queries of 4 seeds",
+           "card": card, "adj_dict_s": adj_s, "strategies": lines}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
 # -------------------------------------------------------------- main path ----
 def serve_args(**kw) -> argparse.Namespace:
     base = dict(requests=12, slots=4, max_new=12, nodes=N_NODES, index="brute", shards=None,
@@ -733,7 +872,8 @@ def paged_phase(card: str, cfg, params, contiguous_tokens: dict) -> dict:
         cache_mod.RetrievalCache.reclaim_kv = reclaim_kv
     assert run4["truncations"] >= 1 and run4["truncated"] == run4["truncations"], run4
     assert run4["pin_reclaims"]["truncations_at_first"] == 0 and run4["kv_releases"] >= 1
-    return {"runs": [run1, run2, run3, run4]}
+    return {"runs": [run1, run2, run3, run4],
+            "tokens": {"share_wave": toks1, "share_int8": tokens(done3)}}
 
 
 def cross_device_check(reduced_cfg) -> int:
@@ -830,6 +970,191 @@ def paged_cross_device_check(reduced_cfg) -> dict:
         summary[name] = {key: card["stats"][key] for key in keys}
     assert summary["share_continuous"]["kv_shared_admits"] == 4, summary
     assert summary["small_pool"]["truncations"] >= 1, summary
+    return summary
+
+
+# ------------------------------------------------------------ spec decode ----
+# bf16 near-tie bound: a spec token that leaves the one-token serve's must
+# sit within this of that serve's top logit at that step (a faulty verify
+# step would put its token anywhere in the distribution)
+NEAR_TIE = 0.25
+
+
+def one_token_margins(cfg, params, q_ids, wanted: dict, one_token: dict, **kw) -> dict:
+    """Re-serve the one-token run of an arena (same batches, so the same
+    GEMM kernels as the serve it repeats) and read its logits at each
+    diverged uid's first divergent step: ``wanted`` maps uid -> (step, spec
+    token).  Returns per uid the step, the one-token serve's top-2 logit
+    gap there and how far below its top logit the spec token was, and
+    whether the re-serve reproduced the one-token tokens."""
+    from repro_torch.launch.serve import _serve_rag
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.serving.engine import ServeEngine
+
+    last, found = {}, {}
+    decode_fns = {"decode_step": tm.decode_step, "paged_decode_step": tm.paged_decode_step}
+    step_one = ServeEngine._step_one
+
+    def keep_logits(name):
+        def fn(*a, **k):
+            logits, cache = decode_fns[name](*a, **k)
+            last["logits"] = logits
+            return logits, cache
+        return fn
+
+    def recording_step_one(self):
+        before = {i: (r.uid, len(r.out_tokens)) for i, r in enumerate(self.active)
+                  if r is not None and self.live[i]}
+        finished = step_one(self)
+        for i, (uid, n) in before.items():
+            if uid in wanted and wanted[uid][0] == n:
+                row = last["logits"][i].float()
+                top = torch.topk(row, 2).values
+                found[uid] = {"step": n, "one_token_top2_gap": float(top[0] - top[1]),
+                              "spec_token_below_top": float(top[0] - row[wanted[uid][1]])}
+        return finished
+
+    for name in decode_fns:
+        setattr(tm, name, keep_logits(name))
+    ServeEngine._step_one = recording_step_one
+    try:
+        out = _serve_rag(cfg, serve_args(spec_decode=False, **kw), q_ids=q_ids, params=params)
+    finally:
+        for name, fn in decode_fns.items():
+            setattr(tm, name, fn)
+        ServeEngine._step_one = step_one
+    again = {r.uid: r.out_tokens for r in out["done"]}
+    return {"reproduces_one_token": again == one_token, "uids": found}
+
+
+def spec_run(card: str, name: str, cfg, params, q_ids, one_token: dict, **kw) -> dict:
+    """One counted serve of the main path's mix with self-speculative decode
+    (``draft_window`` 4): launches asserted (the retrieval kernels run per
+    wave as in one-token decode), the allocator checked after the drain
+    (paged), the decode profiled, and one line of numbers printed.  Its
+    tokens are compared with ``one_token`` (the one-token serve of the same
+    arena) and the agreement reported.  In bf16 a 16-row verify GEMM runs
+    another cuBLAS kernel than a 4-row decode GEMM, so a near-tie may flip
+    an argmax: each uid that leaves the one-token tokens gets its first
+    divergent step and that serve's logit margins there on the line, and
+    the run fails unless every such step is a near-tie (the spec token
+    within ``NEAR_TIE`` of the top logit) and the dtype is bf16."""
+    args = serve_args(spec_decode=True, draft_window=4, **kw)
+    out, launches, overflow_rows = counted_serve(cfg, args, q_ids, params)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_serve_launches(out, launches, overflow_rows, "brute")
+    done, s, eng = out["done"], out["stats"], out["engine"].engine
+    assert len(done) == len(q_ids) and all(r.done and not r.failed for r in done), name
+    assert s["spec_decode"] and s["draft_window"] == 4, name
+    if eng.paged_kv:
+        check_allocator(eng)
+    by_uid = {r.uid: r for r in done}
+    toks = tokens(by_uid)
+    rec = {"spec_run": name, "card": card, "draft_window": 4, "paged_kv": s["paged_kv"],
+           "prefix_share": s["prefix_share"], "kv_quant": cfg.kv_quant,
+           "cache_len": out["cache_len"], "max_new": args.max_new,
+           "tok_per_s": out["tok_per_s"], "decode_ms_per_step": out["decode_ms_per_step"],
+           "decode_steps": s["decode_steps"], "decode_tokens": s["decode_tokens"],
+           "tokens_per_step": s["tokens_per_step"], "draft_accept_rate": s["draft_accept_rate"],
+           "draft_proposed": s["draft_proposed"], "draft_accepted": s["draft_accepted"],
+           "retrieval_batches": s["retrieval_batches"], "launches": launches,
+           "peak_mem_gb": peak, "agreement_with_one_token": token_agreement(one_token, toks)}
+    if eng.paged_kv:
+        rec.update({k: s[k] for k in ("pool_high_water_blocks", "pool_blocks", "kv_shared_admits",
+                                      "kv_reused_tokens", "kv_cow_copies")})
+    diverged = sorted(u for u in one_token if one_token[u] != toks[u])
+    if diverged:  # bf16: W-row GEMMs run other cuBLAS kernels than 1-row ones
+        wanted = {}
+        for u in diverged:
+            k = next(i for i, (a, b) in enumerate(zip(one_token[u], toks[u])) if a != b)
+            wanted[u] = (k, toks[u][k])
+        rec["divergence"] = one_token_margins(cfg, params, q_ids, wanted, one_token, **kw)
+    rec["decode_profile"] = profile_decode(eng)
+    print(json.dumps(rec), flush=True)
+    if diverged:
+        div = rec["divergence"]
+        assert cfg.dtype == "bfloat16" and div["reproduces_one_token"], (name, div)
+        assert sorted(div["uids"]) == diverged, (name, div)
+        assert all(d["spec_token_below_top"] <= NEAR_TIE for d in div["uids"].values()), (name, div)
+    return rec
+
+
+def spec_phase(card: str, cfg, params, one_token: dict) -> dict:
+    """The main path's mix (8 distinct + 4 repeated queries, 12 new tokens,
+    4 slots, cache_len 4096, the 169,343-node graph, the main path's
+    weights) with self-speculative decode at ``draft_window`` 4 over the
+    contiguous arena, the paged arena with prefix sharing, and the paged
+    arena with prefix sharing and int8 KV, each held to the one-token serve
+    of the same arena (``one_token``: per-uid tokens by arena)."""
+    distinct = np.random.default_rng(0).choice(N_NODES, 8, replace=False)
+    q_ids = np.concatenate([distinct, distinct[:4]])
+    runs = [spec_run(card, "spec_contiguous_wave", cfg, params, q_ids, one_token["contiguous"]),
+            spec_run(card, "spec_paged_share_wave", cfg, params, q_ids, one_token["share_wave"],
+                     paged_kv=True, prefix_share=True),
+            spec_run(card, "spec_paged_share_int8", dataclasses.replace(cfg, kv_quant=True),
+                     params, q_ids, one_token["share_int8"], paged_kv=True, prefix_share=True)]
+    assert runs[1]["kv_shared_admits"] == 4 and runs[2]["kv_shared_admits"] == 4, runs
+    return {"runs": runs}
+
+
+def spec_cross_device_check(reduced_cfg) -> dict:
+    """The gate of speculative decode: the reduced fp32 serve of the main
+    path's mix (24 new tokens) at ``draft_window`` 4 on the card and on the
+    CPU with the same weights, over the contiguous arena, the paged arena
+    with prefix sharing, and paged + share + int8 KV under continuous
+    admission.  On the card the spec tokens must equal the one-token serve's
+    of the same arena exactly; across devices tokens, retrieved nodes,
+    prompts, truncated flags, the decode and draft counters, the share
+    counters and (paged) the final block tables, free stack and refcounts
+    must agree exactly."""
+    from repro_torch.launch.serve import _serve_rag
+
+    distinct = np.random.default_rng(0).choice(3000, 8, replace=False)
+    q_ids = np.concatenate([distinct, distinct[:4]])
+    # paged pools of 96 blocks: room for the pins beside 4 live slots
+    share = dict(paged_kv=True, prefix_share=True, pool_blocks=96)
+    cases = {"contiguous": (reduced_cfg, {}),
+             "paged_share": (reduced_cfg, share),
+             "paged_share_int8_continuous": (dataclasses.replace(reduced_cfg, kv_quant=True),
+                                             dict(share, admission="continuous"))}
+    summary = {}
+    for name, (cfg, kw) in cases.items():
+        # cache_len 128: 96-token prompts plus 24 new tokens, 16-token blocks
+        kw = dict(nodes=3000, cache_len=128, max_new=24, **kw)
+        spec = dict(spec_decode=True, draft_window=4)
+        card = _serve_rag(cfg, serve_args(**spec, **kw), q_ids=q_ids)
+        one = _serve_rag(cfg, serve_args(spec_decode=False, **kw), q_ids=q_ids,
+                         params=card["params"])
+        host = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v.cpu())
+                for k, v in card["params"].items()}
+        cpu = _serve_rag(cfg, serve_args(device="cpu", **spec, **kw), q_ids=q_ids, params=host)
+        runs = [{r.uid: r for r in out["done"]} for out in (card, one, cpu)]
+        assert sorted(runs[0]) == sorted(runs[1]) == sorted(runs[2]) == list(range(12)), name
+        for uid, a in runs[0].items():
+            o, b = runs[1][uid], runs[2][uid]
+            assert (a.out_tokens, a.truncated) == (o.out_tokens, o.truncated), \
+                (name, "1-token", uid)
+            assert np.array_equal(a.retrieved_nodes, b.retrieved_nodes), (name, uid)
+            assert np.array_equal(a.prompt_ids, b.prompt_ids), (name, uid)
+            assert (a.out_tokens, a.truncated) == (b.out_tokens, b.truncated), (name, "cpu", uid)
+        keys = ["decode_steps", "decode_tokens", "draft_proposed", "draft_accepted",
+                "truncations"]
+        if kw.get("paged_kv"):
+            ea, eb = card["engine"].engine, cpu["engine"].engine
+            for field in ("table", "free", "n_free", "ref"):
+                assert torch.equal(getattr(ea.cache, field).cpu(), getattr(eb.cache, field)), \
+                    (name, field)
+            keys += ["kv_shared_admits", "kv_reused_tokens", "kv_cow_copies", "kv_pins",
+                     "kv_releases", "kv_pinned_blocks", "pool_high_water_blocks"]
+        for key in keys:
+            assert card["stats"][key] == cpu["stats"][key], (name, key)
+        summary[name] = {"tokens_per_step": card["stats"]["tokens_per_step"],
+                         "draft_accept_rate": card["stats"]["draft_accept_rate"],
+                         "decode_steps_spec_one_token": [card["stats"]["decode_steps"],
+                                                         one["stats"]["decode_steps"]],
+                         **{k: card["stats"][k] for k in keys}}
+    assert summary["paged_share"]["kv_shared_admits"] == 4, summary
+    assert summary["paged_share_int8_continuous"]["kv_shared_admits"] == 4, summary
     return summary
 
 
@@ -1696,6 +2021,10 @@ def main() -> int:
     print(f"strategies: compact and dense agree on every row that did not overflow "
           f"({time.perf_counter() - t0:.1f}s, peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB)",
           flush=True)
+    t0 = time.perf_counter()
+    naive_oracle_phase(card, g, ell)
+    print(f"naive oracle: the batched retrieval agrees with the pure-Python baselines "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
     ell_launches = ell_path(rng)
     ell_record = check_ell_spmm(rng)
     print(f"ell_spmm path: {ell_launches} launches at {ELL_SHAPES} (Q, M, K, D); kernel check: "
@@ -1713,6 +2042,8 @@ def main() -> int:
                       "card": card, **mp}), flush=True)
     mp_ivf = main_path(spec.model_cfg, index="ivf", params=params)[0]
     paged = paged_phase(card, spec.model_cfg, params, brute_tokens)
+    spec_runs = spec_phase(card, spec.model_cfg, params,
+                           {"contiguous": brute_tokens, **paged["tokens"]})["runs"]
     del params
     print(json.dumps({"main_path": "the same with the IVF index (64 lists, nprobe 4)",
                       "card": card, **mp_ivf}), flush=True)
@@ -1738,8 +2069,21 @@ def main() -> int:
         "exhaustion": {k: run4[k] for k in ("pool_blocks", "truncations", "kv_releases",
                                             "pool_high_water_blocks", "pin_reclaims")}}}),
           flush=True)
+    print(json.dumps({"spec_phase": {
+        "card": card, "draft_window": 4,
+        "runs": {r["spec_run"]: {k: r[k] for k in ("tok_per_s", "decode_ms_per_step",
+                                                   "tokens_per_step", "draft_accept_rate",
+                                                   "draft_proposed", "agreement_with_one_token")}
+                 for r in spec_runs},
+        "one_token_decode_ms_per_step_contiguous_paged_int8": [
+            mp["decode_ms_per_step"], run1["decode_ms_per_step"], run3["decode_ms_per_step"]],
+        "one_token_device_busy_ms_per_step_contiguous_paged_int8": [
+            r["decode_profile"]["device_busy_ms_per_step"] for r in (mp, run1, run3)]}}),
+          flush=True)
     torch.cuda.empty_cache()
     print(json.dumps({"paged_cross_device": paged_cross_device_check(spec.reduced_cfg)}),
+          flush=True)
+    print(json.dumps({"spec_cross_device": spec_cross_device_check(spec.reduced_cfg)}),
           flush=True)
     overflowed = cross_device_check(spec.reduced_cfg)
     print(f"cross-device check: card and CPU agree on nodes, prompts and tokens (auto, "

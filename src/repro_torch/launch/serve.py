@@ -10,6 +10,8 @@ cache + decode), on the card by default.
         --index sharded_ivf --shards 4 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b --rag \
         --paged-kv --prefix-share --admission continuous --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b --rag \
+        --spec-decode --draft-window 4 --paged-kv --device cpu
 
 The CLI serves the arch's reduced config, as the reference launcher does;
 :func:`_serve_rag` takes any config (``chip_smoke.py`` passes the full one).
@@ -43,7 +45,7 @@ def _serve_rag(cfg, args, q_ids: Optional[np.ndarray] = None,
     ``params`` replaces the seeded random weights (a CPU and a CUDA
     generator draw different numbers from one seed).  The serving flags
     (``admission``, ``paged_kv``, ``prefix_share``, ``kv_block``,
-    ``pool_blocks``) and ``cache_len`` (the arena length; default: the
+    ``pool_blocks``, ``spec_decode``, ``draft_window``) and ``cache_len`` (the arena length; default: the
     window, or the longest prompt plus ``max_new``) are optional
     attributes of ``args``."""
     dev = resolve_device(args.device)
@@ -72,7 +74,9 @@ def _serve_rag(cfg, args, q_ids: Optional[np.ndarray] = None,
         admission=getattr(args, "admission", None), paged_kv=getattr(args, "paged_kv", None),
         prefix_share=getattr(args, "prefix_share", None),
         kv_block_size=getattr(args, "kv_block", None),
-        kv_pool_blocks=getattr(args, "pool_blocks", None))
+        kv_pool_blocks=getattr(args, "pool_blocks", None),
+        spec_decode=getattr(args, "spec_decode", None),
+        draft_window=getattr(args, "draft_window", None))
     eng = RAGServeEngine(pipe, params, cfg, config=serve_cfg, device=dev)
     if q_ids is None:
         q_ids = np.random.default_rng(0).choice(args.nodes, size=args.requests, replace=True)
@@ -103,8 +107,12 @@ def _serve_rag(cfg, args, q_ids: Optional[np.ndarray] = None,
 
 
 def _print_kv_stats(s: dict) -> None:
-    """The paged pool, prefix-share and truncation lines of the reference
-    launcher's printout."""
+    """The spec decode, paged pool, prefix-share and truncation lines of
+    the reference launcher's printout."""
+    if s["spec_decode"]:
+        print(f"  spec decode: window={s['draft_window']}, {s['tokens_per_step']:.2f} accepted "
+              f"tokens/step, accept rate {s['draft_accept_rate']:.2f} "
+              f"({s['decode_steps']} verify dispatches)")
     if s["paged_kv"]:
         print(f"  paged KV: block={s['block_size']} tokens, pool={s['pool_blocks']} blocks, "
               f"high water {s['pool_high_water_blocks']} blocks")
@@ -151,6 +159,13 @@ def main(argv=None):
     ap.add_argument("--pool-blocks", type=int, default=None,
                     help="blocks in the shared KV pool (default slots*cache_len/block, full "
                          "capacity; fewer save memory and may truncate generations)")
+    ap.add_argument("--spec-decode", action=argparse.BooleanOptionalAction, default=None,
+                    help="self-speculative multi-token decode: verify a window of "
+                         "prompt-lookup drafts per step (--no-spec-decode forces one-token "
+                         "decode; default honors RGL_SPEC_DECODE)")
+    ap.add_argument("--draft-window", type=int, default=None,
+                    help="fed tokens per speculative step (1 committed + W-1 drafts; default "
+                         "honors RGL_DRAFT_WINDOW, 4)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if not args.rag:

@@ -1,7 +1,7 @@
 """Attention: RoPE, dense and chunked (flash) causal/sliding-window attention
-for training and prefill, and KV-cache decode attention over a contiguous
-arena or, through a block table, a paged pool (int8 rows with scales or
-the working dtype).
+for training and prefill, and KV-cache decode and speculative-verify
+attention over a contiguous arena or, through a block table, a paged pool
+(int8 rows with scales or the working dtype).
 
 Layouts are the reference's (``repro.models.transformer.attention``):
 queries (B, S, H, dh), keys/values (B, S, KV, dh), GQA by grouping the H
@@ -130,6 +130,41 @@ def decode_attention(
     return o.reshape(b, 1, h, dh)
 
 
+def verify_attention(
+    q: torch.Tensor,  # (B, W, H, dh) RoPE'd queries of W fed tokens
+    k_cache: torch.Tensor,  # (B, Sc, KV, dh), the W fresh rows included
+    v_cache: torch.Tensor,  # (B, Sc, KV, dh)
+    kv_pos: torch.Tensor,  # (B, Sc) absolute positions, -1 = empty slot
+    q_pos: torch.Tensor,  # (B, W) absolute position of each fed token
+    window: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,  # (B, Sc, KV) int8-mode absmax scales
+    v_scale: Optional[torch.Tensor] = None,  # (dequantization folded into the products)
+) -> torch.Tensor:
+    """Decode attention for W query positions at once (speculative
+    verification).  Query *i* sees ``kv_pos <= q_pos[:, i]``, the rule
+    :func:`decode_attention` applies to its one query, so each position
+    attends over exactly the cache a sequential decode step there would
+    see: fed tokens at later positions are in the arena but masked out."""
+    b, w, h, dh = q.shape
+    kvh = k_cache.shape[2]
+    rep = h // kvh
+    qg = q.reshape(b, w, kvh, rep, dh).float()
+    s_ = torch.einsum("bwkrd,bckd->bkrwc", qg, k_cache.float()) * (dh**-0.5)
+    if k_scale is not None:  # int8 cache: dequantize the scores
+        s_ = s_ * k_scale.permute(0, 2, 1).float()[:, :, None, None]
+    ok = (kv_pos[:, None, :] >= 0) & (kv_pos[:, None, :] <= q_pos[..., None])  # (B, W, Sc)
+    if window is not None:
+        ok &= (q_pos[..., None] - kv_pos[:, None, :]) < window
+    s_ = torch.where(ok[:, None, None], s_, NEG)  # (B, KV, rep, W, Sc)
+    p = torch.softmax(s_, dim=-1)
+    if v_scale is not None:  # fold the dequantization into p; P·V in fp32
+        p = p * v_scale.permute(0, 2, 1).float()[:, :, None, None]
+        o = torch.einsum("bkrwc,bckd->bkrwd", p, v_cache.float()).to(q.dtype)
+    else:
+        o = torch.einsum("bkrwc,bckd->bkrwd", p.to(v_cache.dtype), v_cache)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, w, h, dh)
+
+
 # --------------------------------------------------------------------------
 # paged KV: block-table indirection in front of the decode attention
 # --------------------------------------------------------------------------
@@ -164,3 +199,24 @@ def paged_decode_attention(
     ks = paged_gather(k_scale, rows) if k_scale is not None else None
     vs = paged_gather(v_scale, rows) if v_scale is not None else None
     return decode_attention(q, kc, vc, kv_pos, cur_pos, window, k_scale=ks, v_scale=vs)
+
+
+def paged_verify_attention(
+    q: torch.Tensor,  # (B, W, H, dh) RoPE'd queries of W fed tokens
+    k_pool: torch.Tensor,  # (P, KV, dh), the W fresh rows included
+    v_pool: torch.Tensor,  # (P, KV, dh)
+    rows: torch.Tensor,  # (B, Sc) block-table row map
+    kv_pos: torch.Tensor,  # (B, Sc) absolute positions, -1 = empty
+    q_pos: torch.Tensor,  # (B, W) absolute position of each fed token
+    window: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,  # (P, KV)
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """:func:`verify_attention` through the block table: the same gather,
+    then the contiguous function unchanged (and the same bit-for-bit
+    argument as :func:`paged_decode_attention`)."""
+    kc = paged_gather(k_pool, rows)
+    vc = paged_gather(v_pool, rows)
+    ks = paged_gather(k_scale, rows) if k_scale is not None else None
+    vs = paged_gather(v_scale, rows) if v_scale is not None else None
+    return verify_attention(q, kc, vc, kv_pos, q_pos, window, k_scale=ks, v_scale=vs)

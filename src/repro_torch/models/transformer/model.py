@@ -1,7 +1,7 @@
-"""Decoder-only LM: init, train forward with a streamed loss, prefill and
-decode over a contiguous KV arena or a paged block pool (optionally int8
-with per-row scales).  Dense SwiGLU FFN, GQA + RoPE, optional sliding
-window.
+"""Decoder-only LM: init, train forward with a streamed loss, prefill,
+decode and speculative verification over a contiguous KV arena or a paged
+block pool (optionally int8 with per-row scales).  Dense SwiGLU FFN, GQA +
+RoPE, optional sliding window.
 
 Parameters are a plain dict with the reference's structure and layout:
 ``embed`` (V, D), ``head`` (D, V), ``ln_f`` (D,), and ``layers`` whose
@@ -340,6 +340,112 @@ def serve_step(params, cache: KVCache, token: torch.Tensor, cfg: TransformerConf
 
 
 # --------------------------------------------------------------------------
+# self-speculative verification: score W fed tokens in one step
+# --------------------------------------------------------------------------
+@torch.no_grad()
+def verify_window(params, cache: KVCache, tokens: torch.Tensor, cfg: TransformerConfig):
+    """Score a window of fed tokens against the KV arena in one pass.
+
+    tokens (B, W): column 0 is the last committed token, columns 1..W-1
+    draft continuations.  Token *i* is processed at absolute position
+    ``cursor + i``: all W rows are written first (only positions <
+    cache_len, so a window near the arena's end never wraps onto a live
+    row), then every query attends under the per-position mask of
+    :func:`attention.verify_attention`, so each position sees exactly the
+    cache a sequential :func:`decode_step` there would see.
+
+    Returns (greedy (B, W) int32, cache) with all W rows written and the
+    cursor unchanged; :func:`verify_step` advances it past the accepted
+    prefix.  Rows of rejected positions stay: their ``pos`` exceeds every
+    later query position until the cursor catches up, and the next window
+    overwrites them before any attention runs.  The arena is updated in
+    place, as in :func:`decode_step`.
+    """
+    _check_supported(cfg)
+    b, w = tokens.shape
+    sc = cache.k.shape[2]
+    cur = cache.cursor  # (B,)
+    positions = cur[:, None] + torch.arange(w, dtype=torch.int32, device=cur.device)[None, :]
+    writable = positions < sc  # never wrap onto live rows
+    slot = (positions % sc).long()  # distinct within a row for W <= Sc
+    bidx = torch.arange(b, device=cur.device)[:, None]
+    slot_mask = (torch.arange(sc, dtype=torch.int32, device=cur.device)[None, None, :]
+                 == slot[..., None]) & writable[..., None]  # (B, W, Sc)
+    pos = cache.pos
+    for i in range(w):
+        pos = torch.where(slot_mask[:, i], positions[:, i:i + 1], pos)
+    wr = writable[..., None]
+
+    def put(arena, i, rows):
+        """arena[i, b, slot[b, j]] = rows[b, j] where writable (else keep)."""
+        old = arena[i, bidx, slot]
+        m = wr if rows.dim() == 3 else wr[..., None]
+        arena[i, bidx, slot] = torch.where(m, rows, old)
+
+    x = params["embed"][tokens.long()]  # (B, W, D)
+    for i in range(cfg.n_layers):
+        p = layer_params(params, i)
+        xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = _attn_proj(p, xn, cfg)
+        q = attn.rope(q, positions, cfg.rope_theta)
+        k = attn.rope(k, positions, cfg.rope_theta)
+        ks = vs = None
+        if cfg.kv_quant:
+            kq, ksc = _quant_rows(k)
+            vq, vsc = _quant_rows(v)
+            put(cache.k, i, kq)
+            put(cache.v, i, vq)
+            put(cache.k_scale, i, ksc)
+            put(cache.v_scale, i, vsc)
+            ks, vs = cache.k_scale[i], cache.v_scale[i]
+        else:
+            put(cache.k, i, k)
+            put(cache.v, i, v)
+        o = attn.verify_attention(q, cache.k[i], cache.v[i], pos, positions, cfg.sliding_window,
+                                  k_scale=ks, v_scale=vs)
+        x = x + (o.reshape(b, w, -1) @ p["wo"]).to(x.dtype)
+        x = _ffn(p, x, cfg)
+    cache.pos = pos
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = x.float() @ params["head"].float()  # (B, W, V)
+    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+
+def _accept_prefix(greedy: torch.Tensor, tokens: torch.Tensor, room: torch.Tensor, w: int,
+                   eos_id):
+    """Greedy-exact acceptance, shared by both arenas: position 0 always
+    accepts; draft *i* accepts iff it equals the accepted output at *i-1*;
+    ``room`` caps the prefix (clamped to >= 1) and ``eos_id`` cuts it just
+    past the first EOS.  Returns (accepted (B,) int32, cur_tok (B,))."""
+    match = (tokens[:, 1:] == greedy[:, :-1]).to(torch.int32)  # (B, W-1)
+    raw = 1 + torch.cumprod(match, dim=1).sum(dim=1)  # (B,) in [1, W]
+    accepted = torch.minimum(raw, torch.clamp(room, min=1)).to(torch.int32)
+    if eos_id is not None:
+        idx = torch.arange(w, dtype=torch.int32, device=greedy.device)[None, :]
+        is_eos = (greedy == eos_id) & (idx < accepted[:, None])
+        first_eos = torch.where(is_eos, idx, w).amin(dim=1)
+        accepted = torch.minimum(accepted, first_eos + 1).to(torch.int32)
+    cur_tok = greedy.gather(1, (accepted - 1).long()[:, None])[:, 0]
+    return accepted, cur_tok
+
+
+def verify_step(params, cache: KVCache, tokens: torch.Tensor, room: torch.Tensor,
+                cfg: TransformerConfig, eos_id=None):
+    """One speculative step: verify W fed tokens, accept the greedy-matching
+    prefix, and advance the cursor past it (rejected rows stay behind it).
+
+    tokens (B, W): [last committed token, draft_1 .. draft_{W-1}]; room
+    (B,): per-slot cap on accepted tokens (clamped to >= 1, so a dead
+    slot's cursor drifts by 1 to W a step until admission re-pins it).
+    Returns (greedy (B, W), accepted (B,) in [1, W], next committed token
+    (B,), cache with ``cursor += accepted``)."""
+    greedy, cache = verify_window(params, cache, tokens, cfg)
+    accepted, cur_tok = _accept_prefix(greedy, tokens, room, tokens.shape[1], eos_id)
+    cache.cursor = cache.cursor + accepted
+    return greedy, accepted, cur_tok, cache
+
+
+# --------------------------------------------------------------------------
 # paged KV pool: block-table indirection over a shared block arena
 # --------------------------------------------------------------------------
 @dataclasses.dataclass
@@ -612,14 +718,73 @@ def paged_serve_step(params, cache: PagedKVCache, token: torch.Tensor, live: tor
     return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
 
-def _not_ported(name: str, item: str):
-    def stub(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet: ROADMAP Queue 1 item {item}")
-    stub.__name__ = name
-    return stub
+@torch.no_grad()
+def paged_verify_window(params, cache: PagedKVCache, tokens: torch.Tensor, live: torch.Tensor,
+                        cfg: TransformerConfig, block_size: int):
+    """:func:`verify_window` over the paged pool: allocate the blocks the
+    W-token window crosses (live slots only), write all W rows into the
+    pool, and score every position under the same per-position mask.  The
+    rows written and the gathered per-slot view equal the contiguous
+    arena's, so the greedy tokens do too.  Returns (greedy (B, W), cache)
+    with the cursor unchanged; the pool is updated in place, its rows
+    picked once a call (one host sync, before the layers run)."""
+    _check_supported(cfg)
+    b, w = tokens.shape
+    sc = cache.pos.shape[1]
+    bs = block_size
+    m = cache.table.shape[1]
+    cur = cache.cursor  # (B,)
+    positions = cur[:, None] + torch.arange(w, dtype=torch.int32, device=cur.device)[None, :]
+    writable = (positions < sc) & live[:, None]
+    # a W-window starting anywhere inside a block spans at most
+    # ceil(W/bs) + 1 blocks
+    hi = torch.clamp(cur + w, max=sc)
+    target = torch.where(live, (hi + bs - 1) // bs, 0)
+    table, n_free, ref = alloc_blocks(cache.table, cache.free, cache.n_free, cache.ref,
+                                      target, live, min(m, (w + bs - 1) // bs + 1))
+    rows = block_rows(table, bs)  # (B, Sc)
+    ent = table.gather(1, torch.clamp(positions // bs, 0, m - 1).long())  # (B, W)
+    keep = (writable & (ent >= 0)).reshape(-1).nonzero()[:, 0]
+    wrow = (ent * bs + positions % bs).reshape(-1)[keep].long()
+    slot_mask = (torch.arange(sc, dtype=torch.int32, device=cur.device)[None, None, :]
+                 == torch.clamp(positions, 0, sc - 1)[..., None]) & writable[..., None]
+    pos = cache.pos
+    for i in range(w):
+        pos = torch.where(slot_mask[:, i], positions[:, i:i + 1], pos)
+    x = params["embed"][tokens.long()]  # (B, W, D)
+    for i in range(cfg.n_layers):
+        p = layer_params(params, i)
+        xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = _attn_proj(p, xn, cfg)
+        q = attn.rope(q, positions, cfg.rope_theta)
+        k = attn.rope(k, positions, cfg.rope_theta)
+        k_rows = k.reshape(b * w, *k.shape[2:])[keep]
+        v_rows = v.reshape(b * w, *v.shape[2:])[keep]
+        ks = vs = None
+        if cfg.kv_quant:
+            kq, ksc = _quant_rows(k_rows)
+            vq, vsc = _quant_rows(v_rows)
+            cache.k[i, wrow], cache.v[i, wrow] = kq, vq
+            cache.k_scale[i, wrow], cache.v_scale[i, wrow] = ksc, vsc
+            ks, vs = cache.k_scale[i], cache.v_scale[i]
+        else:
+            cache.k[i, wrow] = k_rows
+            cache.v[i, wrow] = v_rows
+        o = attn.paged_verify_attention(q, cache.k[i], cache.v[i], rows, pos, positions,
+                                        cfg.sliding_window, k_scale=ks, v_scale=vs)
+        x = x + (o.reshape(b, w, -1) @ p["wo"]).to(x.dtype)
+        x = _ffn(p, x, cfg)
+    cache = dataclasses.replace(cache, pos=pos, table=table, n_free=n_free, ref=ref)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = x.float() @ params["head"].float()
+    return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
 
-verify_window = _not_ported("verify_window", "11 (speculative decode)")
-verify_step = _not_ported("verify_step", "11 (speculative decode)")
-paged_verify_window = _not_ported("paged_verify_window", "11 (speculative decode over paged KV)")
-paged_verify_step = _not_ported("paged_verify_step", "11 (speculative decode over paged KV)")
+def paged_verify_step(params, cache: PagedKVCache, tokens: torch.Tensor, room: torch.Tensor,
+                      live: torch.Tensor, cfg: TransformerConfig, eos_id=None, *,
+                      block_size: int):
+    """:func:`verify_step` over the paged pool: the same acceptance
+    arithmetic, the cursor advanced past the accepted prefix."""
+    greedy, cache = paged_verify_window(params, cache, tokens, live, cfg, block_size)
+    accepted, cur_tok = _accept_prefix(greedy, tokens, room, tokens.shape[1], eos_id)
+    return greedy, accepted, cur_tok, dataclasses.replace(cache, cursor=cache.cursor + accepted)

@@ -141,6 +141,11 @@ class RetrievalCache:
         self.hits += 1
         return slot.entry
 
+    def hit_count(self, query_emb) -> int:
+        """Per-entry hit count (0 if absent): the lfu eviction signal."""
+        slot = self._data.get(self.key(query_emb))
+        return slot.hits if slot is not None else 0
+
     @staticmethod
     def _release_kv(entry: CachedRetrieval) -> int:
         """Release an entry's KV pin (if any) as it leaves the cache; the
@@ -231,3 +236,7 @@ class RetrievalCache:
             "inflight": len(self._inflight),
             "hit_rate": self.hits / total if total else 0.0,
         }
+
+    def stats_ns(self) -> dict:
+        """Namespaced stats: this cache's counters under ``cache.*``."""
+        return {"cache": self.stats()}

@@ -12,7 +12,15 @@ slot holds only the blocks its cursor has crossed and returns them the step
 its request retires.  ``prefix_share`` (paged only) lets a request whose
 exact prompt a retrieval-cache entry has pinned alias the pinned blocks
 instead of running prefill.  Outputs are the same tokens on either arena.
-Speculative decode is not ported yet and raises (ROADMAP Queue 1 item 11).
+
+Two decode modes share the arena: one-token (each step is one
+``tm.serve_step``), and self-speculative (``spec_decode`` or
+``RGL_SPEC_DECODE=1``): each step drafts ``draft_window - 1`` tokens per
+slot from the request's own prompt+output history
+(:mod:`repro_torch.serving.drafter`, no second model) and verifies all of
+them in one ``tm.verify_step``.  Greedy acceptance keeps the longest draft
+prefix that one-token decode would have emitted, so a step commits 1 to
+``draft_window`` tokens a slot and the outputs are one-token decode's.
 """
 from __future__ import annotations
 
@@ -29,6 +37,18 @@ from repro_torch import resolve_device
 from repro_torch.models.transformer import model as tm
 from repro_torch.models.transformer.config import TransformerConfig
 from repro_torch.serving.config import env_flag
+from repro_torch.serving.drafter import draft_tokens
+
+
+def _draft_window_default() -> int:
+    """``RGL_DRAFT_WINDOW`` (default 4), unclamped: the constructor applies
+    the same ``>= 2`` check to it as to ``draft_window=``, so an invalid
+    setting fails loudly instead of being rewritten."""
+    raw = os.environ.get("RGL_DRAFT_WINDOW", "4")
+    try:
+        return int(raw)
+    except ValueError:
+        raise ValueError(f"RGL_DRAFT_WINDOW={raw!r} is not an integer") from None
 
 
 def _auto_block_size(cache_len: int, preferred: int = 16) -> int:
@@ -136,6 +156,49 @@ def _paged_merge_admitted(arena: tm.PagedKVCache, new: tm.KVCache, cur_tok: torc
     return arena, torch.where(newly, first[rows.long()], cur_tok)
 
 
+def _speculate(verify, cache, cur_tok, hist, hist_len, max_new, out_len, n_draft: int):
+    """One speculative engine step on the device: prompt-lookup drafts,
+    each slot's acceptance room, ``verify(fed, room)`` (the arena's verify
+    step), and the append of the accepted tokens to the slots' histories.
+
+    ``max_new`` / ``out_len`` (B,) int32 are device mirrors of each slot's
+    token budget and emitted count, so ``room = min(max_new - out_len,
+    cache_len - cursor)`` (which keeps a window from overshooting
+    ``max_new_tokens`` or the arena) needs no host sync.  Returns (packed
+    (B, W + 1): greedy tokens and the accepted count, the step's one host
+    transfer; next token, cache, hist, hist_len, out_len)."""
+    drafts = draft_tokens(hist, hist_len, n_draft)
+    fed = torch.cat([cur_tok[:, None], drafts], dim=1)
+    room = torch.minimum(max_new - out_len, cache.pos.shape[1] - cache.cursor).to(torch.int32)
+    greedy, accepted, nxt, cache = verify(fed, room)
+    h = hist.shape[1]
+    cols = torch.arange(h, dtype=torch.int32, device=hist.device)[None, :]
+    for i in range(n_draft + 1):
+        write = (i < accepted)[:, None] & (cols == (hist_len + i)[:, None])
+        hist = torch.where(write, greedy[:, i:i + 1], hist)
+    hist_len = torch.clamp(hist_len + accepted, max=h).to(torch.int32)
+    packed = torch.cat([greedy, accepted[:, None]], dim=1)
+    return packed, nxt, cache, hist, hist_len, (out_len + accepted).to(torch.int32)
+
+
+def _spec_step(params, cache: tm.KVCache, cur_tok, hist, hist_len, max_new, out_len,
+               cfg: TransformerConfig, n_draft: int, eos_id):
+    """:func:`_speculate` over the contiguous arena."""
+    return _speculate(lambda fed, room: tm.verify_step(params, cache, fed, room, cfg, eos_id),
+                      cache, cur_tok, hist, hist_len, max_new, out_len, n_draft)
+
+
+def _paged_spec_step(params, cache: tm.PagedKVCache, cur_tok, hist, hist_len, max_new, out_len,
+                     live, cfg: TransformerConfig, n_draft: int, eos_id, block_size: int):
+    """:func:`_speculate` over the paged pool: the same draft, room,
+    acceptance and history arithmetic (so the tokens equal the contiguous
+    arena's), with ``live`` gating the allocator and the row writes."""
+    def verify(fed, room):
+        return tm.paged_verify_step(params, cache, fed, room, live, cfg, eos_id=eos_id,
+                                    block_size=block_size)
+    return _speculate(verify, cache, cur_tok, hist, hist_len, max_new, out_len, n_draft)
+
+
 class ServeEngine:
     """Continuous-batching decode server over a fixed KV arena.
 
@@ -144,6 +207,10 @@ class ServeEngine:
         eng = ServeEngine(params, cfg, slots=8, cache_len=512, device="cuda")
         eng.submit(Request(uid=0, prompt_ids=ids, max_new_tokens=32))
         finished = eng.run_to_completion()
+
+    ``spec_decode=None`` reads ``RGL_SPEC_DECODE`` (default off);
+    ``draft_window=None`` reads ``RGL_DRAFT_WINDOW`` (4), and must be >= 2
+    when speculating.
 
     ``paged_kv=None`` reads ``RGL_PAGED_KV`` (default off).  When paged,
     ``block_size=None`` picks the largest divisor of ``cache_len`` <= 16
@@ -158,16 +225,19 @@ class ServeEngine:
     def __init__(
         self, params, cfg: TransformerConfig, *, slots: int = 8,
         cache_len: int = 512, eos_id: Optional[int] = None,
-        spec_decode: Optional[bool] = None, paged_kv: Optional[bool] = None,
-        block_size: Optional[int] = None, pool_blocks: Optional[int] = None,
-        prefix_share: Optional[bool] = None, device="cuda",
+        spec_decode: Optional[bool] = None, draft_window: Optional[int] = None,
+        paged_kv: Optional[bool] = None, block_size: Optional[int] = None,
+        pool_blocks: Optional[int] = None, prefix_share: Optional[bool] = None,
+        device="cuda",
     ):
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the engine on {self.device}")
-        if env_flag("RGL_SPEC_DECODE") if spec_decode is None else spec_decode:
-            raise NotImplementedError(
-                "spec_decode is not ported yet: ROADMAP Queue 1 item 11 (speculative decode)")
+        self.spec_decode = env_flag("RGL_SPEC_DECODE") if spec_decode is None else bool(spec_decode)
+        self.draft_window = _draft_window_default() if draft_window is None else int(draft_window)
+        if self.spec_decode and self.draft_window < 2:
+            raise ValueError(f"draft_window must be >= 2 (1 committed token + >= 1 draft), "
+                             f"got {self.draft_window}")
         self.params = params
         self.cfg = cfg
         self.slots = slots
@@ -221,10 +291,26 @@ class ServeEngine:
         self.kv_reused_tokens = 0  # prompt tokens whose prefill was skipped
         self.kv_cow_copies = 0  # partial tail blocks copied at adoption
         self.cur_tok = torch.zeros((slots,), dtype=torch.int32, device=self.device)
+        # per-slot token history for the drafter (prompt + every emitted
+        # token, left-aligned; prompt < cache_len and decode stops at
+        # cursor == cache_len bound it).  The host copy is written at
+        # admission and uploaded once a wave; between admissions the device
+        # copy evolves inside the spec step and the host copy follows it
+        self._hist_cap = cache_len + 1
+        self.hist = np.zeros((slots, self._hist_cap), np.int32)
+        self.hist_len = np.zeros((slots,), np.int32)
+        self._hist_dev = self._ids(self.hist)
+        self._hist_len_dev = self._ids(self.hist_len)
         # host mirror of the device cursor: admission pins it to the prompt
-        # length and every decode step advances it, so finish checks never
-        # sync on the device cursor
+        # length and every decode step advances it by the tokens committed,
+        # so finish checks and the spec room never sync on the device cursor
         self._cursor = np.zeros((slots,), np.int64)
+        # each slot's token budget and emitted count, mirrored on the
+        # device for the spec step's room (uploaded at admission only)
+        self._max_new = np.ones((slots,), np.int32)
+        self._out_len = np.zeros((slots,), np.int32)
+        self._max_new_dev = self._ids(self._max_new)
+        self._out_len_dev = self._ids(self._out_len)
         self.prefill_batches = 0  # prefill dispatches issued by _admit
         self.prefill_rows = 0  # prompts actually prefilled
         self.admit_seconds = 0.0  # wall time inside _admit
@@ -233,6 +319,8 @@ class ServeEngine:
         self.slot_steps = 0  # live-slot decode opportunities (slots x steps)
         self.emitted_tokens = 0  # all tokens committed (incl. prefill firsts)
         self.decode_tokens = 0  # tokens committed by decode dispatches
+        self.draft_proposed = 0  # draft tokens fed to verification
+        self.draft_accepted = 0  # drafts accepted (the free token excluded)
 
     @property
     def free_slots(self) -> int:
@@ -319,13 +407,19 @@ class ServeEngine:
         if retired.size:
             self._free_slots_paged(retired.tolist())
 
+    @property
+    def _ntab(self) -> np.ndarray:
+        """Per-slot allocated-block counts, from the block-id mirror."""
+        return np.array([len(b) for b in self._slot_blocks], np.int64)
+
     def _paged_step_need(self) -> np.ndarray:
         """Per-slot blocks the next step's allocator pops, replayed on the
-        host mirrors."""
+        host mirrors: a spec step writes up to ``draft_window`` rows."""
+        w = self.draft_window if self.spec_decode else 1
         need = np.zeros(self.slots, np.int64)
         for i in range(self.slots):
             if self.live[i]:
-                hi = min(int(self._cursor[i]) + 1, self.cache_len)
+                hi = min(int(self._cursor[i]) + w, self.cache_len)
                 need[i] = max(self._blocks_for(hi) - len(self._slot_blocks[i]), 0)
         return need
 
@@ -543,8 +637,19 @@ class ServeEngine:
                 continue
             self.active[i] = req
             self.live[i] = True
+            n = len(req.prompt_ids)
+            self.hist[i, :n] = np.asarray(req.prompt_ids, np.int32)
+            self.hist[i, n] = tok0
+            self.hist_len[i] = n + 1
+            self._max_new[i] = req.max_new_tokens
+            self._out_len[i] = 1
         if self.paged_kv and dead_at_admission:
             self._free_slots_paged(dead_at_admission)
+        if self.spec_decode:
+            self._hist_dev = self._ids(self.hist)
+            self._hist_len_dev = self._ids(self.hist_len)
+            self._max_new_dev = self._ids(self._max_new)
+            self._out_len_dev = self._ids(self._out_len)
         return finished
 
     def _prefill_fresh(self, reqs: list, fresh_pairs: list, first_by_slot: np.ndarray) -> None:
@@ -621,6 +726,13 @@ class ServeEngine:
         self._host_release(tail_drops)
         self._live_dirty = True
 
+    def _hist_append(self, i: int, toks: list) -> None:
+        hl = int(self.hist_len[i])
+        n = min(len(toks), self._hist_cap - hl)
+        if n > 0:
+            self.hist[i, hl:hl + n] = toks[:n]
+            self.hist_len[i] = hl + n
+
     def _finish_check(self, i: int, req: Request, last_tok: int, finished: list) -> None:
         hit_eos = self.eos_id is not None and last_tok == self.eos_id
         budget_full = len(req.out_tokens) >= req.max_new_tokens
@@ -641,7 +753,7 @@ class ServeEngine:
             finished.extend(self._retire_pool_exhausted())
         if not self.live.any():
             return finished
-        finished.extend(self._step_one())
+        finished.extend(self._step_spec() if self.spec_decode else self._step_one())
         return finished
 
     def _step_one(self) -> list:
@@ -673,20 +785,68 @@ class ServeEngine:
             self._release_retired(live_before)
         return finished
 
+    def _step_spec(self) -> list:
+        """Self-speculative decode: draft ``W - 1`` tokens per slot from its
+        own history, verify them, and commit the greedy-matching prefix (1
+        to W tokens a slot).  Dead slots run with the room their stale
+        mirrors give (clamped to >= 1): their writes stay masked at the
+        arena's edge (or, paged, are not made) and admission re-pins them."""
+        w = self.draft_window
+        t0 = time.perf_counter()
+        if self.paged_kv:
+            self._apply_paged_alloc()
+            (packed, self.cur_tok, self.cache, self._hist_dev, self._hist_len_dev,
+             self._out_len_dev) = _paged_spec_step(
+                self.params, self.cache, self.cur_tok, self._hist_dev, self._hist_len_dev,
+                self._max_new_dev, self._out_len_dev, self._live_mask(), self.cfg, w - 1,
+                self.eos_id, self.block_size)
+        else:
+            (packed, self.cur_tok, self.cache, self._hist_dev, self._hist_len_dev,
+             self._out_len_dev) = _spec_step(
+                self.params, self.cache, self.cur_tok, self._hist_dev, self._hist_len_dev,
+                self._max_new_dev, self._out_len_dev, self.cfg, w - 1, self.eos_id)
+        packed_np = packed.cpu().numpy()  # the step's one token sync
+        self.decode_seconds += time.perf_counter() - t0
+        self.decode_steps += 1
+        g_np, acc_np = packed_np[:, :w], packed_np[:, w]
+        self._cursor += acc_np  # verify_step advanced every slot by its accepted count
+        self._out_len += acc_np
+        finished = []
+        live_before = self.live.copy()
+        for i, req in enumerate(self.active):
+            if req is None or not self.live[i]:
+                continue
+            a = int(acc_np[i])
+            emitted = g_np[i, :a].tolist()
+            req.out_tokens.extend(emitted)
+            self.emitted_tokens += a
+            self.decode_tokens += a
+            self.slot_steps += 1
+            self.draft_proposed += w - 1
+            self.draft_accepted += a - 1
+            self._hist_append(i, emitted)
+            self._finish_check(i, req, emitted[-1], finished)
+        if self.paged_kv:
+            self._release_retired(live_before)
+        return finished
+
     def decode_stats(self) -> dict:
-        """Dispatch-amortization telemetry (the reference's keys; the
-        speculative ones at their one-token values)."""
+        """Dispatch-amortization telemetry (the reference's keys, plus the
+        wall time of decode steps).  ``tokens_per_step`` is the mean number
+        of tokens a live slot commits a step: 1.0 in one-token mode, up to
+        ``draft_window`` under speculation."""
         stats = {
-            "spec_decode": False,
-            "draft_window": 1,
+            "spec_decode": self.spec_decode,
+            "draft_window": self.draft_window if self.spec_decode else 1,
             "decode_steps": self.decode_steps,
             "decode_seconds": self.decode_seconds,
             "emitted_tokens": self.emitted_tokens,
             "decode_tokens": self.decode_tokens,
-            "draft_proposed": 0,
-            "draft_accepted": 0,
+            "draft_proposed": self.draft_proposed,
+            "draft_accepted": self.draft_accepted,
             "tokens_per_step": self.decode_tokens / max(self.slot_steps, 1),
-            "draft_accept_rate": 0.0,
+            "draft_accept_rate": (self.draft_accepted / self.draft_proposed
+                                  if self.draft_proposed else 0.0),
             "paged_kv": self.paged_kv,
             "truncations": self.truncations,
             "prefix_share": self.prefix_share,

@@ -15,9 +15,12 @@ pins its prefilled prompt's blocks and a later identical prompt aliases them.
 
 This port runs the sync schedule, with **wave** admission (one retrieval
 launch and collect a wave) or **continuous** admission (one launch and
-collect per free slot, single-request waves).  Async prefetch, fault
-tolerance (retries, timeouts, deadlines, shedding), speculative decode and
-online mutation are not ported yet; asking for them raises.
+collect per free slot, single-request waves), and either decode mode of
+the slot engine (one-token, or self-speculative with ``spec_decode``).
+Several engines may share one retrieval tier: pass the same
+``retrieval_cache=`` to each.  Async prefetch, fault tolerance (retries,
+timeouts, deadlines, shedding) and online mutation are not ported yet;
+asking for them raises.
 """
 from __future__ import annotations
 
@@ -40,7 +43,6 @@ from repro_torch.serving.stats import flatten_stats
 # yet, each with its ROADMAP Queue 1 item
 _NOT_PORTED = {
     "prefetch": (False, "12 (async prefetch)"),
-    "spec_decode": (False, "11 (speculative decode)"),
     "retrieval_timeout_s": (None, "12 (fault tolerance)"),
     "max_retries": (0, "12 (fault tolerance)"),
     "max_pending": (0, "12 (load shedding)"),
@@ -82,11 +84,16 @@ class RAGServeEngine:
 
     ``pipe`` must carry a tokenizer and node_text.  Serving knobs resolve
     through :class:`ServingConfig` (explicit kwarg > ``RGL_*`` env >
-    default), as in the reference.
+    default), as in the reference.  ``retrieval_cache`` is used as given
+    (never re-created from ``cache_capacity`` / ``quant_eps`` /
+    ``cache_policy``), so engines handed one instance share its entries
+    and counters.
     """
 
     def __init__(self, pipeline: RGLPipeline, params, cfg: TransformerConfig, *,
-                 config: Optional[ServingConfig] = None, device="cuda", **overrides):
+                 config: Optional[ServingConfig] = None,
+                 retrieval_cache: Optional[RetrievalCache] = None, device="cuda",
+                 **overrides):
         if pipeline.tokenizer is None or pipeline.node_text is None:
             raise ValueError("the pipeline needs a tokenizer and node_text")
         self.device = resolve_device(device)
@@ -106,13 +113,14 @@ class RAGServeEngine:
         self.slots = resolved.slots
         self.engine = ServeEngine(
             params, cfg, slots=resolved.slots, cache_len=resolved.cache_len,
-            eos_id=resolved.eos_id, spec_decode=False, paged_kv=resolved.paged_kv,
+            eos_id=resolved.eos_id, spec_decode=resolved.spec_decode,
+            draft_window=resolved.draft_window, paged_kv=resolved.paged_kv,
             block_size=resolved.kv_block_size, pool_blocks=resolved.kv_pool_blocks,
             prefix_share=resolved.prefix_share, device=self.device,
         )
-        self.cache = RetrievalCache(capacity=resolved.cache_capacity,
-                                    quant_eps=resolved.quant_eps,
-                                    policy=resolved.cache_policy, ttl=resolved.cache_ttl)
+        self.cache = retrieval_cache if retrieval_cache is not None else RetrievalCache(
+            capacity=resolved.cache_capacity, quant_eps=resolved.quant_eps,
+            policy=resolved.cache_policy, ttl=resolved.cache_ttl)
         if self.engine.prefix_share:
             # pins attach only to entries still resident, and pool pressure
             # releases this engine's pins before it truncates a live request
@@ -129,6 +137,14 @@ class RAGServeEngine:
         self._next_ticket = 0
 
     # -- counters -------------------------------------------------------------
+    @property
+    def cache_hits(self) -> int:
+        return self.cache.hits
+
+    @property
+    def cache_misses(self) -> int:
+        return self.cache.misses
+
     @property
     def retrieval_batches(self) -> int:
         return self.prefetcher.batches

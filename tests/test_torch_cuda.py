@@ -4,8 +4,9 @@ ragged candidate rows, worksets of one id or of more than 48 KB; flash
 attention over head dims, GQA ratios, windows, both dtypes and ragged S;
 ELL aggregation over odd widths and sentinel ids; the IVF scan over ragged,
 narrow and tied candidate sets; both scan kernels' variants, merges and
-workspace), and the index kinds and an IVF serve on the card against the
-CPU.  Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere.
+workspace), the index kinds and an IVF serve on the card against the CPU,
+the paged arena, int8 KV and speculative decode on the card against the
+CPU and against one-token decode.  Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere.
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -959,3 +960,69 @@ def test_host_mirrors_equal_the_card_allocator_after_churn(dev):
                 assert table[i, :len(blks)].tolist() == blks
                 assert (table[i, len(blks):] == -1).all()
     assert truncated > 0 and eng.kv_shared_admits > 0
+
+
+@pytest.mark.parametrize("paged,quant", [(False, False), (True, False), (False, True),
+                                         (True, True)])
+def test_spec_decode_on_the_card_matches_one_token_and_the_cpu(dev, paged, quant):
+    """Self-speculative decode at the reduced fp32 config (windows 2 and 5;
+    repetitive prompts, so drafts are accepted): the card's spec tokens
+    equal the card's one-token tokens and the CPU's spec tokens, and the
+    draft counters agree across devices."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_config("starcoder2-3b").reduced_cfg, kv_quant=quant)
+    params = tm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card_params = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict) else v.to(dev))
+                   for k, v in params.items()}
+    rng = np.random.default_rng(4)
+    prompts = [np.tile(rng.integers(1, cfg.vocab, int(rng.integers(2, 5))), 8)[:int(n)]
+               .astype(np.int32) for n in rng.integers(6, 30, 7)]
+    for window in (2, 5):
+        outs, stats = [], []
+        for p, d, spec in ((card_params, "cuda", True), (card_params, "cuda", False),
+                           (params, "cpu", True)):
+            eng = ServeEngine(p, cfg, slots=3, cache_len=64, paged_kv=paged, block_size=8,
+                              spec_decode=spec, draft_window=window, device=d)
+            for u, ids in enumerate(prompts):
+                eng.submit(Request(uid=u, prompt_ids=ids, max_new_tokens=20))
+            outs.append({r.uid: (r.out_tokens, r.truncated) for r in eng.run_to_completion()})
+            stats.append(eng.decode_stats())
+        assert outs[0] == outs[1] == outs[2], (paged, quant, window)
+        for key in ("decode_steps", "draft_proposed", "draft_accepted"):
+            assert stats[0][key] == stats[2][key], key
+        assert stats[0]["decode_steps"] <= stats[1]["decode_steps"]
+
+
+def test_spec_host_mirrors_equal_the_card_allocator(dev):
+    """Speculative decode through a pool that gates admission and truncates
+    (W-row windows): after every step the host mirrors equal the
+    allocator's tensors on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    cfg = get_config("starcoder2-3b").reduced_cfg
+    params = tm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    eng = ServeEngine(params, cfg, slots=3, cache_len=48, paged_kv=True, block_size=4,
+                      pool_blocks=16, spec_decode=True, draft_window=5, device=dev)
+    rng = np.random.default_rng(9)
+    for u in range(8):
+        eng.submit(Request(uid=u, prompt_ids=rng.integers(1, cfg.vocab, int(rng.integers(5, 20)))
+                           .astype(np.int32), max_new_tokens=30))
+    truncated = 0
+    while eng.queue or eng.live.any():
+        truncated += sum(r.truncated for r in eng.step())
+        depth = len(eng._free_stack)
+        assert int(eng.cache.n_free) == depth
+        assert eng.cache.free[:depth].cpu().tolist() == eng._free_stack
+        assert eng.cache.ref.cpu().tolist() == eng._ref_host.tolist()
+        table = eng.cache.table.cpu().numpy()
+        for i, blks in enumerate(eng._slot_blocks):
+            assert table[i, :len(blks)].tolist() == blks
+            assert (table[i, len(blks):] == -1).all()
+    assert truncated > 0 and eng._free_host == 16

@@ -24,6 +24,29 @@ print(len(names))
 """
 
 
+_IMPORT_ONE = """
+import importlib, sys
+importlib.import_module(sys.argv[1])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax", "optax"))
+assert not bad, bad
+"""
+
+
+@pytest.mark.parametrize("module", ["core.naive", "core.rouge", "core.generation",
+                                    "configs.rgl_paper", "serving.drafter",
+                                    "serving.engine", "serving.rag_engine"])
+def test_module_alone_imports_neither_jax_nor_the_reference(module):
+    """Each host-copied module (and the engines that use the drafter),
+    imported on its own in a fresh interpreter, loads no JAX and nothing of
+    ``repro``: its own imports carry no copy of the reference."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ONE, f"repro_torch.{module}"],
+                         env=_env(), capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    src = (ROOT / "src" / "repro_torch" / (module.replace(".", "/") + ".py")).read_text()
+    assert "import jax" not in src and "from repro." not in src and "import repro\n" not in src
+
+
 def _env():
     return {**os.environ, "PYTHONPATH": str(ROOT / "src")}
 

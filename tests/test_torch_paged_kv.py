@@ -265,6 +265,82 @@ def test_paged_decode_step_matches(window, quant):
         np.testing.assert_allclose(cb.k.numpy(), np.asarray(ca.k), **TOL)
 
 
+# bf16: the port's logits and the reference's agree to within the size of the
+# reference's own bf16-against-fp32 gap.  On these inputs (4 prompts of 9-30
+# tokens, 18 decode steps fed the reference's tokens) that gap is up to 0.034
+# on |logits| <= 3.4, and the port's gap to the bf16 reference up to 0.038
+# (XLA and PyTorch round bf16 at different points).  The bound is a little
+# over twice the reference's own gap.
+BF16_ATOL = 0.08
+
+
+def _bf16_models(**kw):
+    ref_cfg, cfg = RefConfig(**{**BASE, "dtype": "bfloat16"}, **kw), \
+        TransformerConfig(**{**BASE, "dtype": "bfloat16"}, **kw)
+    ref_params = ref_tm.init_params(jax.random.PRNGKey(0), ref_cfg)
+    params = tm.params_from_jax(jax.tree.map(np.asarray, ref_params), cfg, device="cpu")
+    return ref_cfg, ref_params, cfg, params
+
+
+def _bf16_close(a, b):
+    np.testing.assert_allclose(_np(b), _np(a), atol=BF16_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("arena,quant", [("contiguous", False), ("paged", False),
+                                         ("contiguous", True), ("paged", True)])
+def test_bf16_logits_within_tolerance_of_reference(arena, quant):
+    """bf16 prefill and decode logits against the reference's, on the
+    contiguous arena, the paged pool and with int8 KV (both arenas), within
+    ``BF16_ATOL``.  Decode is fed the reference's tokens on both sides, so a
+    bf16 near-tie cannot send the two down different paths."""
+    ref_cfg, ref_params, cfg, params = _bf16_models(kv_quant=quant)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 64, n).astype(np.int32) for n in (30, 22, 17, 9)]
+    slots, cache_len = 4, 48
+    if arena == "paged":
+        bs, pool = 8, 24
+        (ca, tok), (cb, _), _ = _admit_both(ref_cfg, ref_params, cfg, params, prompts, slots,
+                                            cache_len, bs, pool)
+        live = np.ones(slots, bool)
+        step_a = lambda c, t: ref_tm.paged_decode_step(  # noqa: E731
+            ref_params, c, t, jnp.asarray(live), ref_cfg, bs)
+        step_b = lambda c, t: tm.paged_decode_step(params, c, t, _t(live), cfg, bs)  # noqa: E731
+    else:
+        toks = np.zeros((slots, 32), np.int32)
+        tl = np.array([len(p) for p in prompts], np.int32)
+        for i, p in enumerate(prompts):
+            toks[i, :len(p)] = p
+        lg_a, ca = ref_tm.prefill(ref_params, jnp.asarray(toks), jnp.asarray(tl), ref_cfg,
+                                  cache_len)
+        lg_b, cb = tm.prefill(params, _t(toks), _t(tl), cfg, cache_len)
+        _bf16_close(lg_a, lg_b)
+        tok = jnp.argmax(lg_a, -1).astype(jnp.int32)
+        step_a = lambda c, t: ref_tm.decode_step(ref_params, c, t, ref_cfg)  # noqa: E731
+        step_b = lambda c, t: tm.decode_step(params, c, t, cfg)  # noqa: E731
+    for _ in range(12):
+        lg_a, ca = step_a(ca, tok)
+        lg_b, cb = step_b(cb, _t(np.asarray(tok)))
+        _bf16_close(lg_a, lg_b)
+        tok = jnp.argmax(lg_a, -1).astype(jnp.int32)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_bf16_tokens_equal_across_the_ports_arenas_and_decode_modes(quant):
+    """bf16 tokens are held exactly port against port: the paged serve and
+    the speculative serves emit the contiguous one-token serve's tokens
+    (exact token parity with the reference is an fp32 bar)."""
+    _, _, cfg, params = _bf16_models(kv_quant=quant)
+    outs = {}
+    for paged, spec in ((False, False), (True, False), (False, True), (True, True)):
+        eng = ServeEngine(params, cfg, slots=3, cache_len=48, paged_kv=paged, spec_decode=spec,
+                          draft_window=4, device="cpu")
+        for r in _mixed(Request, seed=5):
+            eng.submit(r)
+        outs[paged, spec] = {r.uid: r.out_tokens for r in eng.run_to_completion()}
+    for key, got in outs.items():
+        assert got == outs[False, False], key
+
+
 def test_paged_serve_step_argmax():
     ref_cfg, ref_params, cfg, params = _models()
     prompts = [np.arange(1, 12, dtype=np.int32)]

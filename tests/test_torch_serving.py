@@ -161,7 +161,7 @@ def test_abort_and_drain(stack):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(prefetch=True), "item 12"), (dict(prefetch=True, admission="continuous"), "item 12"),
-    (dict(spec_decode=True), "item 11"), (dict(spec_decode=True, paged_kv=True), "item 11"),
+    (dict(default_deadline_s=5.0), "item 12"), (dict(mutation=True), "item 13"),
     (dict(max_retries=2), "item 12"), (dict(max_pending=4), "item 12"),
     (dict(compact_every=3), "item 13"),
 ])
@@ -169,6 +169,45 @@ def test_unported_serving_modes_raise(stack, kw, item):
     _, _, (pipe, cfg, params) = stack
     with pytest.raises(NotImplementedError, match=item):
         RAGServeEngine(pipe, params, cfg, slots=SLOTS, cache_len=CACHE_LEN, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_shared_retrieval_cache_matches_reference(stack, paged):
+    """Two engines handed one ``retrieval_cache`` share its entries: the
+    second engine's repeats hit what the first retrieved.  Hits, misses,
+    per-entry hit counts (``hit_count``), ``stats_ns`` and both engines'
+    ``cache_hits`` / ``cache_misses`` equal the reference's.  With prefix
+    sharing the engines' pin hooks are wired to the injected cache."""
+    g, (ref_pipe, ref_cfg, ref_params), (pipe, cfg, params) = stack
+    work = _workload(g)
+    modes = dict(paged_kv=paged, prefix_share=paged)
+    ref_modes = {**REF_MODES, **modes}
+    caches = (RefRetrievalCache(capacity=8, policy="lfu"), RetrievalCache(capacity=8, policy="lfu"))
+    ref = [RefRAGServeEngine(ref_pipe, ref_params, ref_cfg, slots=SLOTS, cache_len=CACHE_LEN,
+                             retrieval_cache=caches[0], **ref_modes) for _ in range(2)]
+    port = [RAGServeEngine(pipe, params, cfg, slots=SLOTS, cache_len=CACHE_LEN,
+                           retrieval_cache=caches[1], cache_capacity=1, device="cpu", **modes)
+            for _ in range(2)]
+    assert all(e.cache is caches[1] and e.cache.capacity == 8 for e in port)
+    for i, half in enumerate((work[:10], work[10:])):
+        a = _serve(ref[i], RefRAGRequest, half)
+        b = _serve(port[i], RAGRequest, half)
+        assert {u: r.out_tokens for u, r in a.items()} == {u: r.out_tokens for u, r in b.items()}
+        assert {u: r.cache_hit for u, r in a.items()} == {u: r.cache_hit for u, r in b.items()}
+    assert caches[1].hits == caches[0].hits >= 3  # capacity 8 of 12 keys: lfu evicts
+    for er, ep in zip(ref, port):
+        assert (er.cache_hits, er.cache_misses) == (ep.cache_hits, ep.cache_misses)
+        assert (ep.cache_hits, ep.cache_misses) == (caches[1].hits, caches[1].misses)
+    for _, emb, _ in work:
+        assert caches[0].hit_count(emb) == caches[1].hit_count(emb)
+    assert caches[1].hit_count(np.full(128, 7.0, np.float32)) == 0
+    sa, sb = caches[0].stats_ns()["cache"], caches[1].stats_ns()["cache"]
+    for key in sb:
+        assert sa[key] == sb[key], key
+    if paged:
+        for e in port:
+            assert e.engine.kv_pin_gate.__self__ is caches[1]
+        assert caches[1].kv_pinned_entries() == caches[0].kv_pinned_entries() > 0
 
 
 @pytest.mark.parametrize("policy", ["lru", "lfu", "ttl"])

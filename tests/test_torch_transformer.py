@@ -142,9 +142,5 @@ def test_unported_model_paths_raise():
     with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
         tm.init_params(dataclasses.replace(cfg, moe=MoEConfig(4, 2, 32)),
                        torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tm.paged_verify_step(params, None, None, None, None, cfg, block_size=16)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tm.verify_step(params, None, None, None, cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tm.verify_window(params, None, None, cfg)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+        tm.init_cache(dataclasses.replace(cfg, moe=MoEConfig(4, 2, 32)), 1, 8, device="cpu")
