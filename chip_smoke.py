@@ -660,10 +660,12 @@ def serve_counters() -> dict:
             "bfs_frontier": bfs_kernel.launches, "frontier_expand": fe_kernel.launches}
 
 
-def counted_serve(cfg, args: argparse.Namespace, q_ids: np.ndarray, params=None):
+def counted_serve(cfg, args: argparse.Namespace, q_ids: np.ndarray, params=None, stack=None,
+                  **clock):
     """``_serve_rag`` with every kernel launch counted (counts set to 0 just
     before, read just after) and each compact wave's overflowing rows
-    observed.  Returns (serve summary, launches, overflowing rows per wave)."""
+    observed; ``stack`` reuses a built graph, pipeline and weights.
+    Returns (serve summary, launches, overflowing rows per wave)."""
     from repro_torch.core import graph_retrieval as gr
     from repro_torch.launch.serve import _serve_rag
 
@@ -682,23 +684,31 @@ def counted_serve(cfg, args: argparse.Namespace, q_ids: np.ndarray, params=None)
         torch.cuda.reset_peak_memory_stats()
         for counter in counters.values():
             counter.reset()
-        out = _serve_rag(cfg, args, q_ids=q_ids, params=params)
+        out = _serve_rag(cfg, args, q_ids=q_ids, params=params, stack=stack, **clock)
         launches = {name: c.count for name, c in counters.items()}
     finally:
         gr.COMPACT_STRATEGIES["bfs"] = compact_bfs
     return out, launches, overflow_rows
 
 
-def check_serve_launches(out: dict, launches: dict, overflow_rows: list, index: str) -> int:
+def check_serve_launches(out: dict, launches: dict, overflow_rows: list, index: str,
+                         mode: str = "auto") -> int:
     """The retrieval kernels ran on the serve: ``topk_sim`` (brute) or
     ``ivf_scan`` once a wave, ``frontier_expand`` once a hop of every wave,
-    ``bfs_frontier`` once a hop of every dense re-run.  Returns the re-runs."""
+    ``bfs_frontier`` once a hop of every dense re-run (under ``mode="dense"``:
+    no compact hop, ``bfs_frontier`` once a hop of every wave).  Returns the
+    waves that ran dense hops."""
     waves = out["retrieval_batches"]
     hops = out["engine"].pipeline.config.max_hops
-    reruns = sum(1 for r in overflow_rows if r > 0)  # waves that re-ran dense
-    assert waves > 0 and len(overflow_rows) == waves, (overflow_rows, waves)
     assert launches["topk_sim"] == (waves if index == "brute" else 0), (launches, waves)
     assert launches["ivf_scan"] == (waves if index == "ivf" else 0), (launches, waves)
+    if mode == "dense":
+        assert waves > 0 and not overflow_rows, (overflow_rows, waves)
+        assert launches["frontier_expand"] == 0, launches
+        assert launches["bfs_frontier"] == hops * waves, (launches, waves)
+        return waves
+    reruns = sum(1 for r in overflow_rows if r > 0)  # waves that re-ran dense
+    assert waves > 0 and len(overflow_rows) == waves, (overflow_rows, waves)
     assert launches["frontier_expand"] == hops * waves, (launches, waves)
     assert launches["bfs_frontier"] == hops * reruns, (launches, overflow_rows)
     return reruns
@@ -708,7 +718,8 @@ def main_path(cfg, index: str = "brute", params=None):
     """Serve 8 distinct requests plus 4 repeats through the port's entry
     points with ``cfg`` and the ``index`` kind on the card; every kernel
     launch is counted.  ``params`` reuses the weights of an earlier serve.
-    Returns (summary, params, per-uid tokens)."""
+    Returns (summary, params, per-uid tokens, the serve's graph and pipeline
+    stack)."""
     args = serve_args(index=index)
     distinct = np.random.default_rng(0).choice(args.nodes, 8, replace=False)
     q_ids = np.concatenate([distinct, distinct[:4]])
@@ -753,7 +764,7 @@ def main_path(cfg, index: str = "brute", params=None):
                "cache_len": out["cache_len"],
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                "decode_profile": decode_profile, "retrieval_wave": retrieval_wave}
-    return summary, out["params"], {r.uid: r.out_tokens for r in done}
+    return summary, out["params"], {r.uid: r.out_tokens for r in done}, out["stack"]
 
 
 # ------------------------------------------------------------- paged KV ----
@@ -1156,6 +1167,390 @@ def spec_cross_device_check(reduced_cfg) -> dict:
     assert summary["paged_share"]["kv_shared_admits"] == 4, summary
     assert summary["paged_share_int8_continuous"]["kv_shared_admits"] == 4, summary
     return summary
+
+
+# ------------------------------------------ prefetch, faults and the router ----
+# kernel-name fragments of the retrieval path's hand-written kernels
+RETRIEVAL_KERNELS = ("topk_sim_scan_kernel", "topk_merge_kernel", "ws_mark_kernel",
+                     "frontier_hop_", "pack_frontier_kernel", "ivf_scan_kernel")
+TRACE_DIR = Path(__file__).resolve().parent / "build" / "traces"
+
+
+def hybrid_clock():
+    """Wall time plus the seconds slept: what runs is timed on the wall
+    clock, while a stuck row's timeout poll and the retry backoff pass at
+    once instead of sleeping."""
+    slept = [0.0]
+    return {"now_fn": lambda: time.monotonic() + slept[0],
+            "sleep_fn": lambda s: slept.__setitem__(0, slept[0] + s)}
+
+
+def virtual_clock():
+    """A clock that only ``sleep_fn`` advances (the same on two devices)."""
+    t = [0.0]
+    return {"now_fn": lambda: t[0], "sleep_fn": lambda s: t.__setitem__(0, t[0] + s)}
+
+
+def _union(spans: list) -> list:
+    out: list = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _overlap_us(xs: list, ys: list) -> float:
+    """Length of the intersection of two sorted unions of spans."""
+    i = j = 0
+    total = 0.0
+    while i < len(xs) and j < len(ys):
+        lo, hi = max(xs[i][0], ys[j][0]), min(xs[i][1], ys[j][1])
+        total += max(0.0, hi - lo)
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def stream_split(trace: Path) -> dict:
+    """Kernels of a ``torch.profiler`` chrome trace by CUDA stream: the
+    decode stream is the one with the most kernel time and no retrieval
+    kernel; every stream with a retrieval kernel is a retrieval stream.
+    Returns the streams, the device ms of all kernels and copies on the
+    retrieval streams and of the retrieval kernels alone, the decode
+    stream's kernel ms, and the ms in which retrieval-stream work overlaps
+    decode-stream kernels."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    by_stream: dict = {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        stream = (e.get("args") or {}).get("stream")
+        by_stream.setdefault(stream, []).append(
+            (e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["cat"]))
+    retrieval = sorted(s for s, evs in by_stream.items()
+                       if any(f in n for n, *_ in evs for f in RETRIEVAL_KERNELS))
+    others = [s for s in by_stream if s not in retrieval]
+    assert retrieval and others, sorted(by_stream)
+    decode = max(others, key=lambda s: sum(b - a for _, a, b, c in by_stream[s] if c == "kernel"))
+    side = [ev for s in retrieval for ev in by_stream[s]]
+    dec = [ev for ev in by_stream[decode] if ev[3] == "kernel"]
+    return {"decode_stream": decode, "retrieval_streams": retrieval,
+            "retrieval_on_decode_stream": decode in retrieval,
+            "side_stream_device_ms": sum(b - a for _, a, b, _ in side) / 1e3,
+            "retrieval_kernel_ms": sum(b - a for n, a, b, _ in side
+                                       if any(f in n for f in RETRIEVAL_KERNELS)) / 1e3,
+            "decode_stream_kernel_ms": sum(b - a for _, a, b, _ in dec) / 1e3,
+            "overlap_ms": _overlap_us(_union([(a, b) for _, a, b, _ in side]),
+                                      _union([(a, b) for _, a, b, _ in dec])) / 1e3}
+
+
+def profiled_streams(name: str, cfg, args, q_ids, stack) -> dict:
+    """One more serve of ``args`` under ``torch.profiler`` (device activity
+    only; every launch of the serve and the decode steps around it), its
+    trace split by stream (:func:`stream_split`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import _serve_rag
+
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = _serve_rag(cfg, args, q_ids=q_ids, stack=stack)
+        torch.cuda.current_stream().synchronize()
+    path = TRACE_DIR / f"{name}.json"
+    prof.export_chrome_trace(str(path))
+    split = stream_split(path)
+    path.unlink()
+    split["decode_steps"] = out["stats"]["decode_steps"]
+    return split
+
+
+def item12_serve(cfg, stack, q_ids, **kw) -> tuple[dict, dict, list]:
+    """One counted serve of the main path's mix on ``stack``, its retrieval
+    launches asserted; returns (summary, requests by uid, overflow rows)."""
+    args = serve_args(**kw)
+    out, launches, overflow_rows = counted_serve(cfg, args, q_ids, stack=stack)
+    check_serve_launches(out, launches, overflow_rows, "brute", mode=args.retrieval)
+    done = {r.uid: r for r in out["done"]}
+    assert sorted(done) == list(range(len(q_ids))), sorted(done)
+    assert all(r.done and not r.failed for r in done.values()), kw
+    out["launches"] = launches
+    return out, done, overflow_rows
+
+
+def wave_host_ms(stack, q_ids, reps: int = 10) -> dict:
+    """Host ms of one warm 4-query retrieval wave (all misses), median of
+    ``reps`` taken in turns: the prefetcher's launch + collect (side stream,
+    pinned landing, one event) against ``retrieve_many`` on the current
+    stream with its four results copied to the host by ``.cpu()`` (the work
+    of a sync wave before the side stream), both under ``auto`` and
+    ``dense``."""
+    from repro_torch.serving.cache import RetrievalCache
+    from repro_torch.serving.prefetch import AdmissionPrefetcher
+    from repro_torch.serving.rag_engine import RAGRequest
+
+    out = {}
+    for mode in ("auto", "dense"):
+        pipe = dataclasses.replace(stack["pipe"], config=dataclasses.replace(
+            stack["pipe"].config, retrieval_mode=mode))
+        qe = stack["g"].node_feat[q_ids[:4]]
+        reqs = [RAGRequest(uid=u, query_emb=e, query_text="q") for u, e in enumerate(qe)]
+        p = AdmissionPrefetcher(pipe, RetrievalCache(capacity=0), wave_size=4)
+
+        def prefetcher():
+            p.launch(reqs)
+            p.collect()
+
+        def current_stream():
+            res = pipe.retrieve_many(qe, batch_size=4)
+            for t in (res.nodes, res.mask, res.dist, res.seeds):
+                t.cpu()
+
+        samples = {"prefetcher": [], "current_stream": []}
+        for i in range(2 * reps + 2):
+            name, fn = (("prefetcher", prefetcher), ("current_stream", current_stream))[i % 2]
+            t0 = time.perf_counter()
+            fn()
+            if i >= 2:  # the first pair warms up
+                samples[name].append(1e3 * (time.perf_counter() - t0))
+        out[mode] = {k: statistics.median(v) for k, v in samples.items()}
+    return out
+
+
+def prefetch_phase(card: str, cfg, stack, q_ids) -> dict:
+    """The main path's mix on the main path's graph, index and weights with
+    async admission prefetch (retrieval on the prefetcher's side stream),
+    each run beside the sync serve of the same schedule: wave admission at
+    depth 1, continuous admission (depth = slots), paged + share, and
+    ``retrieval="dense"``.  Tokens a uid, cache hits and misses equal the
+    sync serve's; launches asserted a wave; a profiled repeat of each
+    prefetched serve shows the retrieval kernels on a stream other than
+    decode's and how long they overlapped decode's kernels."""
+    runs = {"prefetch_wave": {}, "prefetch_continuous": dict(admission="continuous"),
+            "prefetch_paged_share": dict(paged_kv=True, prefix_share=True),
+            "prefetch_dense": dict(retrieval="dense")}
+    recs, tokens_by, misses_by = [], {}, {}
+    for name, kw in runs.items():
+        sync, sync_done, _ = item12_serve(cfg, stack, q_ids, **kw)
+        pf, pf_done, overflow_rows = item12_serve(cfg, stack, q_ids, prefetch=True, **kw)
+        ss, sp = sync["stats"], pf["stats"]
+        for uid, r in pf_done.items():
+            assert r.out_tokens == sync_done[uid].out_tokens, (name, uid)
+            assert np.array_equal(r.retrieved_nodes, sync_done[uid].retrieved_nodes), (name, uid)
+        assert (sp["hits"], sp["misses"]) == (ss["hits"], ss["misses"]), (name, sp, ss)
+        assert sp["prefetch"] and sp["prefetch_waves"] > 0, name
+        if kw.get("paged_kv"):
+            check_allocator(pf["engine"].engine)
+            assert sp["kv_shared_admits"] == ss["kv_shared_admits"], name
+        streams = profiled_streams(name, cfg, serve_args(prefetch=True, **kw), q_ids, stack)
+        assert not streams["retrieval_on_decode_stream"], (name, streams)
+        rec = {"prefetch_run": name, "card": card, "admission": sp["admission"],
+               "retrieval": kw.get("retrieval", "auto"), "paged_kv": sp["paged_kv"],
+               "depth": pf["engine"].prefetcher.depth, "tok_per_s": pf["tok_per_s"],
+               "sync_tok_per_s": sync["tok_per_s"],
+               "wall_ms_per_step": 1e3 * pf["serve_s"] / sp["decode_steps"],
+               "sync_wall_ms_per_step": 1e3 * sync["serve_s"] / ss["decode_steps"],
+               "launch_seconds": sp["launch_seconds"],
+               "collect_block_seconds": sp["collect_block_seconds"],
+               "sync_retrieval_seconds": ss["retrieval_seconds"],
+               "sync_launch_seconds": ss["launch_seconds"],
+               "sync_collect_block_seconds": ss["collect_block_seconds"],
+               **{k: sp[k] for k in ("overlap_seconds", "overlap_steps", "overlap_tokens",
+                                     "hidden_frac", "prefetch_waves", "retrieval_batches",
+                                     "hits", "misses", "decode_steps")},
+               "overflow_rows_per_wave": overflow_rows, "launches": pf["launches"],
+               "tokens_equal_sync": True, "streams": streams}
+        print(json.dumps(rec), flush=True)
+        recs.append(rec)
+        tokens_by[name] = {u: r.out_tokens for u, r in sync_done.items()}
+        misses_by[name] = ss["misses"]
+    return {"runs": recs, "sync_tokens": tokens_by, "sync_misses": misses_by}
+
+
+def assert_engine_clean(eng) -> None:
+    """No slot, KV block or in-flight key left once a serve settles."""
+    assert eng.cache.inflight_count == 0 and eng.prefetcher.in_flight == 0
+    assert not eng._inflight and not eng._terminal
+    assert not eng.engine.queue and not eng.engine.live.any()
+    if eng.engine.paged_kv:
+        check_allocator(eng.engine)
+
+
+def terminal_once(done: list, n: int) -> None:
+    """Every uid came back once, in exactly one of done, failed or shed."""
+    assert sorted(r.uid for r in done) == list(range(n)), sorted(r.uid for r in done)
+    for r in done:
+        assert (r.done and not r.failed) + r.failed + r.shed == 1, (r.uid, r.done, r.failed,
+                                                                   r.shed)
+
+
+FAULT_COUNTERS = ("retries", "timeouts", "retrieval_failures", "failed", "degraded",
+                  "stale_served", "shed")
+
+
+def fault_phase(card: str, cfg, stack, q_ids, no_fault: dict) -> dict:
+    """The main path's mix through ``FaultyRetrieval(seed=23,
+    fault_rate=0.25)`` (all four fault types) with 2 retries and a 5 s
+    timeout, sync and prefetched.  A warm wave of this mix takes
+    milliseconds (the kernels are built), so no healthy wave comes near the
+    timeout; the clock is the wall clock plus the seconds slept, so a stuck
+    row's timeout passes without sleeping.  Every uid ends once, nothing
+    leaks, and the fault-free uids' tokens equal the no-fault serve's."""
+    from repro_torch.launch.serve import _serve_rag
+    from repro_torch.serving.simulate import FaultyRetrieval
+
+    sched = FaultyRetrieval(None, seed=23, fault_rate=0.25)
+    faulty = {u for u, q in enumerate(q_ids) if sched.fault_of(stack["g"].node_feat[q])}
+    recs = []
+    for prefetch in (False, True):
+        args = serve_args(prefetch=prefetch, fault_rate=0.25, fault_seed=23, retries=2,
+                          retrieval_timeout=5.0)
+        out = _serve_rag(cfg, args, q_ids=q_ids, stack=stack, **hybrid_clock())
+        terminal_once(out["done"], len(q_ids))
+        assert_engine_clean(out["engine"])
+        want = no_fault["prefetch_wave"]
+        for r in out["done"]:
+            if r.uid not in faulty:
+                assert r.done and not (r.degraded or r.stale), r.uid
+                assert r.out_tokens == want[r.uid], r.uid
+        s = out["stats"]
+        rec = {"fault_run": "prefetch" if prefetch else "sync", "card": card,
+               "faults_by_uid": {str(u): sched.fault_of(stack["g"].node_feat[q_ids[u]])
+                                 for u in sorted(faulty)},
+               "tok_per_s": out["tok_per_s"],
+               **{k: s[k] for k in FAULT_COUNTERS + ("hits", "misses", "retrieval_batches")},
+               "injected": dict(out["engine"].pipeline.injected)}
+        print(json.dumps(rec), flush=True)
+        recs.append(rec)
+    return {"runs": recs}
+
+
+def router_phase(card: str, cfg, stack, q_ids, single: dict) -> dict:
+    """Two replicas on the card sharing the main path's weights and one
+    retrieval cache, the second crashing at its step 3, failover on, sync
+    and prefetched: every request is delivered once, tokens equal the
+    single engine's, one failover re-dispatches exactly the requests the
+    crashed replica held, and the fleet misses as often as one engine
+    (single flight across replicas)."""
+    from repro_torch.launch.serve import _serve_rag
+
+    recs = []
+    for prefetch in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        args = serve_args(prefetch=prefetch, replicas=2, crash_replica=3)
+        out = _serve_rag(cfg, args, q_ids=q_ids, stack=stack)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        rs = out["router_stats"]
+        terminal_once(out["done"], len(q_ids))
+        assert all(r.done and not r.failed for r in out["done"]), "a request was lost"
+        assert rs["delivered"] == len(q_ids) and rs["duplicate_deliveries"] == 0, rs
+        crashed = rs["per_replica"][1]
+        assert rs["failovers"] == 1 and crashed["circuit"] == "crashed", rs
+        assert rs["redispatched"] == crashed["dispatched"] - crashed["delivered"] > 0, rs
+        for r in out["done"]:
+            assert r.out_tokens == single["tokens"][r.uid], r.uid
+        for eng in out["engines"]:
+            assert_engine_clean(eng)
+        cache = out["engine"].cache.stats()
+        assert cache["misses"] == single["misses"], (cache, single["misses"])
+        rec = {"router_run": "prefetch" if prefetch else "sync", "card": card,
+               "tok_per_s": out["tok_per_s"], "peak_mem_gb": peak,
+               "weights_shared": all(e.engine.params is stack["params"] for e in out["engines"]),
+               **{k: rs[k] for k in ("submitted", "delivered", "failovers", "redispatched",
+                                     "stranded", "duplicate_deliveries")},
+               "per_replica": [{k: p[k] for k in ("name", "circuit", "dispatched", "delivered",
+                                                  "crashes", "trips")}
+                               for p in rs["per_replica"]],
+               "cache_hits": cache["hits"], "cache_misses": cache["misses"]}
+        assert rec["weights_shared"]
+        print(json.dumps(rec), flush=True)
+        recs.append(rec)
+    return {"runs": recs}
+
+
+def outcome(r) -> tuple:
+    return (list(r.out_tokens), np.asarray(r.retrieved_nodes).tolist(),
+            np.asarray(r.prompt_ids).tolist(), r.cache_hit, r.done, r.failed, r.shed, r.stale,
+            r.degraded, r.truncated, r.error)
+
+
+def fleet_cross_device_check(reduced_cfg) -> dict:
+    """The gate of item 12: reduced fp32, the 3,000-node graph, a virtual
+    clock.  The faulty serve (``FaultyRetrieval`` seed 37 at 25%: the
+    3,000-node mix meets all four fault types at that seed, and none at
+    seed 23; 2 retries, a 0.05 s timeout) and the 2-replica crash serve,
+    each sync and prefetched, on the card and on the CPU with the same
+    weights: per-uid outcomes (tokens, nodes, prompts, flags, errors), every
+    engine's fault and cache counters and the router's counters agree."""
+    from repro_torch.launch.serve import _serve_rag
+
+    distinct = np.random.default_rng(0).choice(3000, 8, replace=False)
+    q_ids = np.concatenate([distinct, distinct[:4]])
+    faults = dict(fault_rate=0.25, fault_seed=37, retries=2, retrieval_timeout=0.05)
+    cases = {f"{kind}_{'prefetch' if pf else 'sync'}": dict(kw, prefetch=pf)
+             for kind, kw in (("fault", faults), ("router", dict(replicas=2, crash_replica=3)))
+             for pf in (False, True)}
+    summary, params = {}, None
+    for name, kw in cases.items():
+        kw = dict(nodes=3000, cache_len=112, **kw)
+        card = _serve_rag(reduced_cfg, serve_args(**kw), q_ids=q_ids, params=params,
+                          **virtual_clock())
+        params = card["params"]
+        host = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v.cpu())
+                for k, v in params.items()}
+        cpu = _serve_rag(reduced_cfg, serve_args(device="cpu", **kw), q_ids=q_ids, params=host,
+                         **virtual_clock())
+        runs = [{r.uid: r for r in out["done"]} for out in (card, cpu)]
+        assert sorted(runs[0]) == sorted(runs[1]) == list(range(12)), name
+        for uid, a in runs[0].items():
+            assert outcome(a) == outcome(runs[1][uid]), (name, uid)
+        keys = FAULT_COUNTERS + ("hits", "misses", "retrieval_batches", "retrieved_queries",
+                                 "prefetch_waves", "overlap_steps", "overlap_tokens",
+                                 "decode_steps", "emitted_tokens")
+        for ea, eb in zip(card["engines"], cpu["engines"]):
+            sa, sb = ea.stats(), eb.stats()
+            for key in keys:
+                assert sa[key] == sb[key], (name, key, sa[key], sb[key])
+        if "router_stats" in card:
+            assert card["router_stats"] == cpu["router_stats"], name
+        s = card["stats"]
+        summary[name] = {k: s[k] for k in keys}
+        if "router_stats" in card:
+            summary[name].update({k: card["router_stats"][k]
+                                  for k in ("failovers", "redispatched", "delivered")})
+        else:
+            summary[name]["injected"] = dict(card["engine"].pipeline.injected)
+    assert all(summary[f"fault_{m}"]["injected"][t] > 0 for m in ("sync", "prefetch")
+               for t in ("dispatch", "force", "stuck", "corrupt")), summary
+    assert all(summary[f"router_{m}"]["failovers"] == 1 for m in ("sync", "prefetch")), summary
+    return summary
+
+
+def item12_phases(card: str, cfg, stack, brute_tokens: dict) -> dict:
+    """The prefetch, fault and router phases on the main path's stack, and
+    one summary line: each prefetched schedule against its sync serve."""
+    t0 = time.perf_counter()
+    distinct = np.random.default_rng(0).choice(N_NODES, 8, replace=False)
+    q_ids = np.concatenate([distinct, distinct[:4]])
+    pf = prefetch_phase(card, cfg, stack, q_ids)
+    assert pf["sync_tokens"]["prefetch_wave"] == brute_tokens, "sync serve left the main path"
+    wave_ms = wave_host_ms(stack, q_ids)
+    faults = fault_phase(card, cfg, stack, q_ids, pf["sync_tokens"])
+    single = {"tokens": brute_tokens, "misses": pf["sync_misses"]["prefetch_wave"]}
+    router = router_phase(card, cfg, stack, q_ids, single)
+    summary = {"card": card, "phase_s": time.perf_counter() - t0,
+               "wave_host_ms": wave_ms, "runs": {
+        r["prefetch_run"]: {k: r[k] for k in ("tok_per_s", "sync_tok_per_s", "hidden_frac",
+                                              "launch_seconds", "collect_block_seconds",
+                                              "sync_retrieval_seconds", "overlap_steps")}
+        | {"overlap_ms": r["streams"]["overlap_ms"],
+           "side_stream_device_ms": r["streams"]["side_stream_device_ms"]}
+        for r in pf["runs"]}}
+    print(json.dumps({"item12_phase": summary}), flush=True)
+    return {"prefetch": pf["runs"], "faults": faults["runs"], "router": router["runs"]}
 
 
 def profile_decode(engine, steps: int = 5) -> dict:
@@ -2037,14 +2432,15 @@ def main() -> int:
     del g, ell, emb
     torch.cuda.empty_cache()
 
-    mp, params, brute_tokens = main_path(spec.model_cfg)
+    mp, params, brute_tokens, stack = main_path(spec.model_cfg)
     print(json.dumps({"main_path": "starcoder2-3b bf16, 169343-node graph, retrieval auto",
                       "card": card, **mp}), flush=True)
     mp_ivf = main_path(spec.model_cfg, index="ivf", params=params)[0]
     paged = paged_phase(card, spec.model_cfg, params, brute_tokens)
     spec_runs = spec_phase(card, spec.model_cfg, params,
                            {"contiguous": brute_tokens, **paged["tokens"]})["runs"]
-    del params
+    item12_phases(card, spec.model_cfg, stack, brute_tokens)
+    del params, stack
     print(json.dumps({"main_path": "the same with the IVF index (64 lists, nprobe 4)",
                       "card": card, **mp_ivf}), flush=True)
     print(json.dumps({"ivf_vs_brute_serve": {
@@ -2084,6 +2480,8 @@ def main() -> int:
     print(json.dumps({"paged_cross_device": paged_cross_device_check(spec.reduced_cfg)}),
           flush=True)
     print(json.dumps({"spec_cross_device": spec_cross_device_check(spec.reduced_cfg)}),
+          flush=True)
+    print(json.dumps({"fleet_cross_device": fleet_cross_device_check(spec.reduced_cfg)}),
           flush=True)
     overflowed = cross_device_check(spec.reduced_cfg)
     print(f"cross-device check: card and CPU agree on nodes, prompts and tokens (auto, "

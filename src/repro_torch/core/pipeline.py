@@ -116,7 +116,13 @@ class RGLPipeline:
 
     def retrieve(self, query_emb, encoder=None) -> RetrievalResult:
         """Stages 2+3+filter — the sub-pipeline completion tasks use."""
-        q = torch.as_tensor(query_emb, dtype=torch.float32, device=self.device)
+        q = torch.as_tensor(query_emb, dtype=torch.float32)
+        if self.device.type == "cuda" and q.device.type == "cpu":
+            # from pinned memory the copy is queued on the current stream; a
+            # pageable copy would first wait for everything queued there
+            # (the admission prefetcher's side stream included)
+            q = q.pin_memory().to(self.device, non_blocking=True)
+        q = q.to(self.device)
         _, seeds = self.retrieve_seeds(q, encoder=encoder)
         sub = self.retrieve_subgraph(seeds)
         sub = self.filter(sub, q, seeds)

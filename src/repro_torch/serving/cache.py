@@ -10,11 +10,19 @@ Eviction policies (capacity pressure): ``lru`` (least recently used),
 ``lfu`` (fewest per-entry hits, ties least recent), ``ttl`` (oldest
 inserted).  Independently, an optional ``ttl`` (seconds) expires entries:
 an expired entry is invisible to ``get`` (a miss, counted once in
-``expired``) and stays resident until capacity pressure purges it, as in
-the reference (whose degradation ladder can still serve it).
+``expired``) and stays resident until capacity pressure purges it: the
+serving engine's degradation ladder falls back to it through
+:meth:`RetrievalCache.peek_stale` when live retrieval fails and retries are
+exhausted (a TTL-expired answer beats no answer).
 
 The **in-flight registry** records keys whose retrieval was dispatched but
-not yet collected (``mark_inflight`` / ``release_inflight``).
+not yet collected (``mark_inflight`` / ``release_inflight``), so a later
+admission launch defers to the in-flight wave instead of dispatching the
+query again.  Each key may carry the owner wave's ``entries_by_key`` dict
+(filled in place at that wave's collect): a prefetcher that finds a key in
+flight but owned by none of its own waves still defers to it, which gives
+several replicas sharing one cache single flight (one dispatch per unique
+query across the fleet; see :class:`repro_torch.serving.router.ReplicaRouter`).
 
 With prefix sharing, an entry may **pin** the paged-KV pool blocks that hold
 its prefilled prompt (``kv_*`` fields, set by the serving engine).  The
@@ -22,8 +30,8 @@ cache releases a pin when its entry leaves (eviction, overwrite, TTL purge)
 and, through :meth:`RetrievalCache.reclaim_kv`, under pool pressure, so
 cache lifetime, not request lifetime, bounds how long prefilled KV stays.
 
-Not ported yet: stale lookups for the degradation ladder (ROADMAP Queue 1
-item 12) and mutation epochs / region invalidation (item 13).
+Not ported yet: mutation epochs and region invalidation (ROADMAP Queue 1
+item 13).
 """
 from __future__ import annotations
 
@@ -87,11 +95,15 @@ class RetrievalCache:
         self.ttl = ttl
         self._now = now_fn
         self._data: OrderedDict[bytes, _Slot] = OrderedDict()  # recency order
-        self._inflight: set[bytes] = set()
+        # dispatched-but-uncollected keys -> the owner wave's entries_by_key
+        # dict (None for an owner that registered none)
+        self._inflight: dict[bytes, dict | None] = {}
         self.hits = 0
         self.misses = 0
         self.evictions = 0
         self.expired = 0
+        self.stale_hits = 0  # peek_stale found a resident (maybe expired) entry
+        self.stale_misses = 0  # peek_stale found nothing resident
 
     def __len__(self) -> int:
         return len(self._data)
@@ -101,14 +113,26 @@ class RetrievalCache:
         return np.round(q / self.quant_eps).astype(np.int32).tobytes()
 
     # -- in-flight miss registry ----------------------------------------------
-    def mark_inflight(self, key: bytes) -> None:
-        self._inflight.add(key)
+    def mark_inflight(self, key: bytes, entries: dict | None = None) -> None:
+        """Record that ``key``'s retrieval was dispatched but not collected.
+        ``entries`` is the owner wave's ``entries_by_key`` dict: registering
+        it lets another prefetcher sharing this cache defer to the owner."""
+        self._inflight[key] = entries
 
     def is_inflight(self, key: bytes) -> bool:
         return key in self._inflight
 
+    def inflight_entries(self, key: bytes) -> dict | None:
+        """The registered owner's ``entries_by_key`` for an in-flight key
+        (None if the key is not in flight or its owner registered none)."""
+        return self._inflight.get(key)
+
     def release_inflight(self, key: bytes) -> None:
-        self._inflight.discard(key)
+        self._inflight.pop(key, None)
+
+    @property
+    def inflight_count(self) -> int:
+        return len(self._inflight)
 
     # -- expiry ---------------------------------------------------------------
     def _is_expired(self, slot: _Slot, now: float) -> bool:
@@ -139,6 +163,18 @@ class RetrievalCache:
         self._data.move_to_end(k)
         slot.hits += 1
         self.hits += 1
+        return slot.entry
+
+    def peek_stale(self, query_emb) -> CachedRetrieval | None:
+        """Degraded-mode lookup: the resident entry for this key even if
+        TTL-expired, without touching hits, misses or recency.  Counted as
+        ``stale_hits`` / ``stale_misses`` (with a shared cache, the fleet's
+        totals)."""
+        slot = self._data.get(self.key(query_emb))
+        if slot is None:
+            self.stale_misses += 1
+            return None
+        self.stale_hits += 1
         return slot.entry
 
     def hit_count(self, query_emb) -> int:
@@ -228,6 +264,8 @@ class RetrievalCache:
             "misses": self.misses,
             "evictions": self.evictions,
             "expired": self.expired,
+            "stale_hits": self.stale_hits,
+            "stale_misses": self.stale_misses,
             "policy": self.policy,
             "size": resident,
             "resident": resident,

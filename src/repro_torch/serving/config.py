@@ -19,7 +19,7 @@ Fields whose default is *derived from other fields* (``kv_block_size``,
 ``replica_depth``) may legitimately stay ``None`` after finalize; the
 consuming layer derives them exactly as before.
 
-``RAGServeEngine(config=...)``, the replica router (reference only so far)
+``RAGServeEngine(config=...)``, :class:`repro_torch.serving.router.ReplicaRouter`
 and ``repro_torch.launch.serve`` are built on this; the engines' historical
 kwargs keep working as a deprecation shim (they become the explicit-kwarg
 layer of the same resolution).

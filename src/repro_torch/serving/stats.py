@@ -7,7 +7,7 @@ Every serving layer exposes its counters under one namespace of a nested
 * ``engine.*``   — RAGServeEngine-level admission/degradation counters
 * ``prefetch.*`` — :class:`repro_torch.serving.prefetch.AdmissionPrefetcher`
 * ``decode.*``   — :meth:`repro_torch.serving.engine.ServeEngine.decode_stats`
-* ``router.*``   — the replica router (not ported yet)
+* ``router.*``   — :class:`repro_torch.serving.router.ReplicaRouter`
 * ``mutation.*`` — the online-mutation tier (not ported yet)
 
 :func:`flatten_stats` derives the historical flat dict from the tree.  The

@@ -1026,3 +1026,155 @@ def test_spec_host_mirrors_equal_the_card_allocator(dev):
             assert table[i, :len(blks)].tolist() == blks
             assert (table[i, len(blks):] == -1).all()
     assert truncated > 0 and eng._free_host == 16
+
+
+# ------------------------------------------------ prefetch on a side stream ---
+SLEEP_CYCLES = 1_000_000_000  # torch.cuda._sleep: ~0.5 s at the H100's clocks
+
+
+def _small_pipe(dev, n=3000, mode="dense", index="brute"):
+    """A retrieval pipeline on ``dev`` (dense mode: no host sync in a wave)."""
+    from repro_torch.core.pipeline import PipelineConfig, RGLPipeline, index_from_config
+    from repro_torch.graph import generators
+    from repro_torch.graph.ell import csr_to_ell
+
+    g = generators.citation_graph(n, avg_deg=8, seed=0)
+    ell = csr_to_ell(g, device=dev)
+    pcfg = PipelineConfig(k_seeds=3, max_nodes=16, filter_budget=6, retrieval_mode=mode,
+                          index_kind=index)
+    return g, RGLPipeline(graph=ell, index=index_from_config(ell.node_feat, pcfg, device=dev),
+                          node_emb=ell.node_feat, config=pcfg, device=dev)
+
+
+def _reqs(g, ids):
+    from repro_torch.serving.rag_engine import RAGRequest
+
+    return [RAGRequest(uid=i, query_emb=g.node_feat[q], query_text="q") for i, q in enumerate(ids)]
+
+
+def test_prefetch_readiness_reads_the_side_streams_event(dev):
+    """Work queued on the prefetcher's side stream ahead of a launch holds
+    the wave: ``launch`` returns at once (dense mode syncs nothing),
+    ``ready_index()`` is None while the side stream sleeps, and ``collect()``
+    then blocks on the event and returns the entries a retrieval on the
+    current stream gives."""
+    import time
+
+    from repro_torch.serving.cache import RetrievalCache
+    from repro_torch.serving.prefetch import AdmissionPrefetcher
+
+    g, pipe = _small_pipe(dev)
+    p = AdmissionPrefetcher(pipe, RetrievalCache(), wave_size=4)
+    ids = [5, 77, 300, 1234]
+    p.launch(_reqs(g, [9]))  # builds the kernels and warms the stream
+    p.collect()
+    side = p.side_stream()
+    assert side is not None and side != torch.cuda.current_stream(dev)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    p.launch(_reqs(g, ids))
+    launch_s = time.perf_counter() - t0
+    assert p.ready_index() is None and launch_s < 0.1, launch_s
+    got = p.collect()
+    want = pipe.retrieve_many(g.node_feat[ids], batch_size=4)
+    for row, (r, e, err) in enumerate(got):
+        assert err is None and r.uid == row
+        assert np.array_equal(e.nodes, want.nodes[row].cpu().numpy())
+        assert np.array_equal(e.mask, want.mask[row].cpu().numpy())
+        assert np.array_equal(e.seeds, want.seeds[row].cpu().numpy())
+    assert p.block_seconds > 0.1 and p.cache.inflight_count == 0
+
+
+def test_timed_out_wave_keeps_its_pinned_buffers_until_its_event(dev):
+    """A wave that times out behind a sleeping side stream fails closed; its
+    pinned buffers stay held (and are not handed to the next launch) until
+    its event completes, and then hold the wave's results."""
+    from repro_torch.serving.cache import RetrievalCache
+    from repro_torch.serving.prefetch import AdmissionPrefetcher
+
+    g, pipe = _small_pipe(dev)
+    p = AdmissionPrefetcher(pipe, RetrievalCache(), wave_size=4, retrieval_timeout_s=0.05)
+    p.launch(_reqs(g, [9]))
+    p.collect()
+    side = p.side_stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(SLEEP_CYCLES)
+    p.launch(_reqs(g, [5, 77]))
+    out = p.collect()
+    assert all(e is None and err.startswith("timeout") for _, e, err in out)
+    assert p.timeouts == 1 and p.failures == 2 and p.cache.inflight_count == 0
+    assert len(p._abandoned) == 1
+    held = p._abandoned[0]
+    held_ptrs = {a.host.data_ptr() for a in held}
+    assert not held[0].event.query()
+    wave = p.launch(_reqs(g, [300, 1234]))  # behind the sleep too
+    assert not held_ptrs & {a.host.data_ptr() for a in wave.arrs}
+    assert p._abandoned == [held]
+    side.synchronize()
+    want = pipe.retrieve_many(g.node_feat[[5, 77]], batch_size=4)
+    assert np.array_equal(held[0].host.numpy(), want.nodes.cpu().numpy())
+    p.collect()
+    p.launch(_reqs(g, [42]))  # the next launch lets the completed landing go
+    assert p._abandoned == []
+    p.collect()
+
+
+@pytest.mark.parametrize("admission", ["wave", "continuous"])
+def test_prefetched_serve_matches_sync_and_the_cpu(dev, admission, monkeypatch):
+    """A reduced fp32 prefetched serve (auto retrieval, 12 requests, 4
+    repeats) on the card: tokens, retrievals, prompts and cache totals equal
+    the card's sync serve and the CPU's prefetched serve, and no
+    device-wide sync runs on the serve path."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import _serve_rag
+
+    cfg = get_config("starcoder2-3b").reduced_cfg
+    q_ids = np.r_[np.arange(8) * 37, np.arange(4) * 37]
+    sync = _serve_rag(cfg, _reduced_serve_args(device="cuda", admission=admission), q_ids=q_ids)
+
+    def no_device_sync(*a, **k):
+        raise AssertionError("torch.cuda.synchronize on the serve path")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", no_device_sync)
+    card = _serve_rag(cfg, _reduced_serve_args(device="cuda", admission=admission, prefetch=True),
+                      q_ids=q_ids, params=sync["params"])
+    monkeypatch.undo()
+    cpu = _serve_rag(cfg, _reduced_serve_args(device="cpu", admission=admission, prefetch=True),
+                     q_ids=q_ids, params=_host_params(sync["params"]))
+    runs = [{r.uid: r for r in out["done"]} for out in (card, sync, cpu)]
+    for uid, a in runs[0].items():
+        for b in (runs[1][uid], runs[2][uid]):
+            assert np.array_equal(a.retrieved_nodes, b.retrieved_nodes), uid
+            assert np.array_equal(a.prompt_ids, b.prompt_ids), uid
+            assert a.out_tokens == b.out_tokens, uid
+    for key in ("hits", "misses", "retrieval_batches", "overlap_steps", "overlap_tokens"):
+        assert card["stats"][key] == cpu["stats"][key], key
+    assert card["stats"]["prefetch"] and card["stats"]["prefetch_waves"] > 0
+    assert (card["stats"]["hits"], card["stats"]["misses"]) == \
+        (sync["stats"]["hits"], sync["stats"]["misses"])
+
+
+@pytest.mark.parametrize("index,mode", [("brute", "dense"), ("brute", "compact"),
+                                        ("ivf", "dense")])
+def test_concurrent_retrievals_on_two_streams_match_one_at_a_time(dev, index, mode):
+    """Two retrieval waves queued at once on two streams (the kernels'
+    scratch and ``topk_merge``'s workspace per stream) give the ids, masks
+    and distances that one wave at a time on the current stream gives."""
+    g, pipe = _small_pipe(dev, n=20_000, mode=mode, index=index)
+    rng = np.random.default_rng(3)
+    qs = [g.node_feat[rng.choice(20_000, 64, replace=False)] for _ in range(2)]
+    want = [pipe.retrieve_many(q, batch_size=64) for q in qs]
+    streams = [torch.cuda.Stream(dev) for _ in qs]
+    cur = torch.cuda.current_stream(dev)
+    got = []
+    for s, q in zip(streams, qs):
+        s.wait_stream(cur)
+    for s, q in zip(streams, qs):
+        with torch.cuda.stream(s):
+            got.append(pipe.retrieve_many(q, batch_size=64))
+    for s in streams:
+        s.synchronize()
+    for a, b in zip(got, want):
+        for name in ("seeds", "nodes", "mask", "dist"):
+            assert torch.equal(getattr(a, name), getattr(b, name)), (index, mode, name)

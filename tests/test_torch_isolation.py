@@ -35,7 +35,8 @@ assert not bad, bad
 
 @pytest.mark.parametrize("module", ["core.naive", "core.rouge", "core.generation",
                                     "configs.rgl_paper", "serving.drafter",
-                                    "serving.engine", "serving.rag_engine"])
+                                    "serving.engine", "serving.rag_engine",
+                                    "serving.simulate", "serving.router"])
 def test_module_alone_imports_neither_jax_nor_the_reference(module):
     """Each host-copied module (and the engines that use the drafter),
     imported on its own in a fresh interpreter, loads no JAX and nothing of
@@ -105,6 +106,7 @@ def test_rag_engine_and_launcher_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour of a machine without CUDA")
     from repro_torch.launch import serve
+    from repro_torch.serving import ReplicaRouter
     from repro_torch.serving.rag_engine import RAGServeEngine
 
     class _Pipe:  # passes the tokenizer check, fails on the device first
@@ -113,7 +115,14 @@ def test_rag_engine_and_launcher_default_to_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         RAGServeEngine(_Pipe(), {}, None)
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        RAGServeEngine(_Pipe(), {}, None, prefetch=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ReplicaRouter([RAGServeEngine(_Pipe(), {}, None) for _ in range(2)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "starcoder2-3b", "--rag", "--nodes", "50"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "starcoder2-3b", "--rag", "--nodes", "50", "--prefetch",
+                    "--replicas", "2"])
 
 
 def test_chip_smoke_refuses_to_run_without_a_card_or_the_repo(tmp_path):

@@ -46,6 +46,7 @@ from repro_torch.serving.engine import Request, ServeEngine, _auto_block_size
 from repro_torch.serving.rag_engine import RAGRequest, RAGServeEngine
 
 from _paged_mirrors import assert_mirrors
+from _serving_twins import sides_of, twin
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 BASE = dict(name="paged-t", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, d_head=16,
@@ -562,6 +563,41 @@ def test_rag_engine_matches_reference(rag_stack, admission, paged, quant):
     _same_rag(a, b, ref, port)
     if admission == "continuous":
         assert port.stats()["retrieval_batches"] == port.stats()["misses"]
+
+
+def test_rag_schedule_matrix_bitwise_identical(rag_stack):
+    """paged x prefetch x spec_decode: every cell's tokens, retrievals,
+    prompts, truncated flags and cache accounting equal the contiguous sync
+    one-token serve's, and each cell's counters equal the reference's cell."""
+    g, sides = rag_stack
+    ref_side, port_side = sides_of(g, *sides[False])
+
+    def run(paged, prefetch, spec):
+        def scenario(side):
+            eng = side.engine(slots=2, cache_len=96, paged_kv=paged, prefetch=prefetch,
+                              spec_decode=spec, draft_window=4)
+            for u, qi in enumerate([0, 1, 2, 0, 3, 1]):
+                eng.submit(side.req(qi, uid=u, max_new=4 + 2 * (u % 3)))
+            done = {r.uid: r for r in eng.run_to_completion()}
+            assert len(done) == 6
+            return eng, done
+        return twin(scenario, ref_side, port_side)
+
+    base_eng, base = run(False, False, False)
+    for paged, prefetch, spec in [(p, f, s) for p in (False, True) for f in (False, True)
+                                  for s in (False, True) if (p, f, s) != (False, False, False)]:
+        eng, done = run(paged, prefetch, spec)
+        for u in base:
+            assert done[u].out_tokens == base[u].out_tokens, (paged, prefetch, spec, u)
+            assert done[u].truncated == base[u].truncated
+            np.testing.assert_array_equal(done[u].retrieved_nodes, base[u].retrieved_nodes)
+            np.testing.assert_array_equal(done[u].prompt_ids, base[u].prompt_ids)
+        assert (eng.cache_hits, eng.cache_misses) == (base_eng.cache_hits, base_eng.cache_misses)
+        s = eng.stats()
+        assert s["paged_kv"] == paged and s["prefetch"] == prefetch
+        assert s["emitted_tokens"] == base_eng.stats()["emitted_tokens"]
+        if paged:
+            assert_mirrors(eng.engine)
 
 
 def test_rag_continuous_equals_wave(rag_stack):

@@ -44,6 +44,7 @@ from repro_torch.serving.engine import Request, ServeEngine
 from repro_torch.serving.rag_engine import RAGRequest, RAGServeEngine
 
 from _paged_mirrors import assert_mirrors
+from _serving_twins import Clock, sides_of, twin
 
 BASE = dict(name="share-t", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, d_head=16,
             d_ff=64, vocab=64, dtype="float32")
@@ -430,6 +431,44 @@ def test_rag_prefix_share_matches_reference(stack, admission, quant):
     assert ds["kv_shared_admits"] > 0 and ds["prefill_rows"] < len(b)
     assert port.cache.kv_pinned_entries() > 0
     _assert_share_clean(port)
+
+
+def test_chaos_soak_with_prefix_sharing(stack):
+    """Seeded retrieval chaos (all four fault types at 25%, one retry, a
+    0.05 s timeout on a virtual clock) with sharing on: every request
+    reaches a terminal state, equal to the reference's, the fault-free
+    subset equals a clean unshared run, and the pool shows no leaked or
+    double-freed block (``RGL_KV_DEBUG`` is armed suite-wide)."""
+    g, sides = stack
+    ref_side, port_side = sides_of(g, *sides[False])
+
+    def run(share, faults):
+        def scenario(side):
+            clock = Clock()
+            src = side.mod.FaultyRetrieval(side.pipe, seed=23, fault_rate=0.25,
+                                           now_fn=clock.now, sleep_fn=clock.sleep) \
+                if faults else None
+            kw = dict(max_retries=1, retrieval_timeout_s=0.05) if faults else {}
+            eng = side.engine(src, slots=3, cache_len=96, paged_kv=True, prefix_share=share,
+                              now_fn=clock.now, sleep_fn=clock.sleep, **kw)
+            for u in range(14):
+                eng.submit(side.req(u % 7, uid=u, max_new=4))
+            return eng, {r.uid: r for r in eng.drain()}
+        return twin(scenario, ref_side, port_side)
+
+    _, clean = run(False, False)
+    sched = port_side.mod.FaultyRetrieval(port_side.pipe, seed=23, fault_rate=0.25)
+    bad_q = {qi for qi in range(7)
+             if sched.fault_of(np.asarray(g.node_feat[qi])) is not None}
+    assert bad_q and len(bad_q) < 7
+    eng, got = run(True, True)
+    assert set(got) == set(range(14)) and all(r.done or r.failed or r.shed for r in got.values())
+    for u, r in got.items():
+        if (u % 7) not in bad_q:
+            assert r.done and not r.degraded and r.out_tokens == clean[u].out_tokens
+            np.testing.assert_array_equal(r.retrieved_nodes, clean[u].retrieved_nodes)
+    assert eng.engine.decode_stats()["kv_shared_admits"] > 0
+    _assert_share_clean(eng)
 
 
 def test_rag_prefix_share_contiguous_fallback(stack):

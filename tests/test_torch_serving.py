@@ -148,7 +148,9 @@ def test_abort_and_drain(stack):
         port.submit(RAGRequest(uid=u, query_emb=emb, query_text=text, max_new_tokens=30))
     port.step()
     out = port.abort("test")
-    assert len(out) == len(work) and all(r.failed for r in out)
+    # as in the reference: admitted requests fail, pending ones are shed
+    assert len(out) == len(work) and all(r.failed != r.shed for r in out)
+    assert sum(r.failed for r in out) == SLOTS and port.stats()["shed"] == len(work) - SLOTS
     assert port._drained()
     for u, emb, text in work[:3]:
         port.submit(RAGRequest(uid=u, query_emb=emb, query_text=text, max_new_tokens=10))
@@ -160,9 +162,11 @@ def test_abort_and_drain(stack):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(prefetch=True), "item 12"), (dict(prefetch=True, admission="continuous"), "item 12"),
-    (dict(default_deadline_s=5.0), "item 12"), (dict(mutation=True), "item 13"),
-    (dict(max_retries=2), "item 12"), (dict(max_pending=4), "item 12"),
+    (dict(mutation=True, prefetch=True), "item 13"),
+    (dict(mutation=True, prefetch=True, admission="continuous"), "item 13"),
+    (dict(compact_every=3, default_deadline_s=5.0), "item 13"), (dict(mutation=True), "item 13"),
+    (dict(mutation=True, max_retries=2), "item 13"),
+    (dict(compact_every=3, prefetch=True, max_pending=4), "item 13"),
     (dict(compact_every=3), "item 13"),
 ])
 def test_unported_serving_modes_raise(stack, kw, item):

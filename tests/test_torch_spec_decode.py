@@ -46,6 +46,7 @@ from repro_torch.serving.engine import Request, ServeEngine
 from repro_torch.serving.rag_engine import RAGRequest, RAGServeEngine
 
 from _paged_mirrors import assert_mirrors
+from _serving_twins import Clock, sides_of, ticking, twin
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 BASE = dict(name="spec-t", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, d_head=16, d_ff=64,
@@ -591,3 +592,74 @@ def test_launcher_spec_flags(capsys):
     assert "spec decode:" not in capsys.readouterr().out
     assert {r.uid: r.out_tokens for r in out["done"]} == \
         {r.uid: r.out_tokens for r in base["done"]}
+
+
+# ------------------------------------------- prefetched schedules (twins) ---
+def _twin_sides(rag_stack):
+    g, sides = rag_stack
+    return sides_of(g, *sides[False])
+
+
+def test_rag_engine_parity_across_all_schedules(rag_stack):
+    """{one-token, speculative} x {sync, prefetched admission}: each cell's
+    per-uid tokens, retrievals, prompts, cache accounting and decode and
+    overlap counters equal the reference's cell, and every cell equals the
+    sync one-token serve."""
+    ref_side, port_side = _twin_sides(rag_stack)
+
+    def run(spec, prefetch):
+        def scenario(side):
+            eng = side.engine(slots=2, cache_len=96, prefetch=prefetch, spec_decode=spec,
+                              draft_window=4)
+            for u, qi in enumerate([0, 1, 2, 0, 3, 1]):
+                eng.submit(side.req(qi, uid=u, max_new=4 + 2 * (u % 3)))
+            done = {r.uid: r for r in eng.run_to_completion()}
+            assert len(done) == 6
+            return eng, done
+        return twin(scenario, ref_side, port_side)
+
+    ref_eng, ref = run(False, False)
+    for spec, prefetch in [(False, True), (True, False), (True, True)]:
+        eng, done = run(spec, prefetch)
+        for u in ref:
+            assert done[u].out_tokens == ref[u].out_tokens, (spec, prefetch)
+            np.testing.assert_array_equal(done[u].retrieved_nodes, ref[u].retrieved_nodes)
+            np.testing.assert_array_equal(done[u].prompt_ids, ref[u].prompt_ids)
+        assert (eng.cache_hits, eng.cache_misses) == (ref_eng.cache_hits, ref_eng.cache_misses)
+        s = eng.stats()
+        assert s["spec_decode"] == spec and s["prefetch"] == prefetch
+        assert s["emitted_tokens"] == ref_eng.stats()["emitted_tokens"]
+
+
+def test_rag_overlap_telemetry_counts_tokens(rag_stack):
+    """Under speculation one step commits several tokens, so the overlap
+    telemetry's accepted tokens run ahead of its steps; the sync schedule
+    accrues none.  Simulated retrieval latency and decode steps advance one
+    virtual clock on each side."""
+    ref_side, port_side = _twin_sides(rag_stack)
+
+    def prefetched(side):
+        clock = Clock()
+        delayed = side.mod.DelayedRetrieval(side.pipe, cost_s=0.02, now_fn=clock.now,
+                                            sleep_fn=clock.sleep)
+        eng = side.engine(delayed, slots=2, cache_len=96, prefetch=True, spec_decode=True,
+                          draft_window=4, now_fn=clock.now, sleep_fn=clock.sleep)
+        ticking(eng, clock, 0.005)
+        for u in range(6):
+            eng.submit(side.req(u, uid=u, max_new=10))
+        return eng, {r.uid: r for r in eng.run_to_completion()}
+
+    eng, done = twin(prefetched, ref_side, port_side)
+    assert len(done) == 6
+    s = eng.stats()
+    assert s["prefetch_waves"] >= 1
+    assert s["overlap_tokens"] >= s["overlap_steps"] >= 1
+
+    def sync(side):
+        eng = side.engine(slots=2, cache_len=96, prefetch=False, spec_decode=True)
+        for u in range(4):
+            eng.submit(side.req(u, uid=u, max_new=6))
+        return eng, {r.uid: r for r in eng.run_to_completion()}
+
+    eng, _ = twin(sync, ref_side, port_side)
+    assert eng.stats()["overlap_tokens"] == 0
