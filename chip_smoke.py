@@ -692,15 +692,19 @@ def counted_serve(cfg, args: argparse.Namespace, q_ids: np.ndarray, params=None,
 
 
 def check_serve_launches(out: dict, launches: dict, overflow_rows: list, index: str,
-                         mode: str = "auto") -> int:
+                         mode: str = "auto", topk_waves: int | None = None) -> int:
     """The retrieval kernels ran on the serve: ``topk_sim`` (brute) or
     ``ivf_scan`` once a wave, ``frontier_expand`` once a hop of every wave,
     ``bfs_frontier`` once a hop of every dense re-run (under ``mode="dense"``:
-    no compact hop, ``bfs_frontier`` once a hop of every wave).  Returns the
-    waves that ran dense hops."""
+    no compact hop, ``bfs_frontier`` once a hop of every wave).
+    ``topk_waves`` is the waves that searched a ``BruteIndex`` where not all
+    did (a mutation store's active brute index scans without the kernel).
+    Returns the waves that ran dense hops."""
     waves = out["retrieval_batches"]
     hops = out["engine"].pipeline.config.max_hops
-    assert launches["topk_sim"] == (waves if index == "brute" else 0), (launches, waves)
+    if topk_waves is None:
+        topk_waves = waves if index == "brute" else 0
+    assert launches["topk_sim"] == topk_waves, (launches, waves, topk_waves)
     assert launches["ivf_scan"] == (waves if index == "ivf" else 0), (launches, waves)
     if mode == "dense":
         assert waves > 0 and not overflow_rows, (overflow_rows, waves)
@@ -731,6 +735,7 @@ def main_path(cfg, index: str = "brute", params=None):
         assert len(r.out_tokens) == args.max_new, (r.uid, len(r.out_tokens))
         assert all(0 <= t < vocab for t in r.out_tokens)
     assert s["hits"] >= 4 and all(r.cache_hit for r in done if r.uid >= 8), s["hits"]
+    out["stack"]["served_nodes"] = {r.uid: r.retrieved_nodes for r in done}
     waves = out["retrieval_batches"]
     pipe = out["engine"].pipeline
     print(f"main path ({index} index): {waves} retrieval waves, overflowing rows per wave "
@@ -1551,6 +1556,485 @@ def item12_phases(card: str, cfg, stack, brute_tokens: dict) -> dict:
         for r in pf["runs"]}}
     print(json.dumps({"item12_phase": summary}), flush=True)
     return {"prefetch": pf["runs"], "faults": faults["runs"], "router": router["runs"]}
+
+
+# -------------------------------------------------------- online mutation ----
+SLEEP_CYCLES = 1_000_000_000  # torch.cuda._sleep: ~0.5 s at the H100's clocks
+
+
+def tier_bytes(store) -> int:
+    """Bytes of a store's active-tier device tensors: the fold's resident
+    inputs, the merged view, the embeddings and the index (0 while
+    pristine)."""
+    if not store.active:
+        return 0
+    g, idx = store.graph, store.index
+    tensors = [*store.delta._dev.values(), g.nbr, g.nbr_mask, store.node_emb,
+               *[v for v in vars(idx).values() if isinstance(v, torch.Tensor)],
+               *(getattr(idx, "_dev", None) or ())]
+    return sum({t.data_ptr(): t.numel() * t.element_size() for t in tensors}.values())
+
+
+def mutation_serve(card: str, name: str, cfg, stack, q_ids, frozen: dict, **kw) -> dict:
+    """The main path's mix on the main path's graph and weights through a
+    fresh ``MutableGraphStore`` while the launcher's seeded writer
+    (``--mutate-rate 0.1``) mutates it between steps, under continuous
+    admission: wave admission retrieves the whole mix in its first three
+    steps, before the writer's first batch (after step 9), so no wave would
+    read the merged graph; one request a free slot retrieves throughout the
+    serve.  ``frozen`` is the frozen serve of the same schedule.  Each apply is timed
+    on the host up to the end of its current-stream work, each fold by CUDA
+    events; every wave's tier (pristine or active) is recorded, and the
+    launches are asserted: ``topk_sim`` once a pristine brute wave and never
+    once the store is active, ``ivf_scan`` once an IVF wave, the hop kernels
+    over the merged graph as on the frozen path."""
+    from repro_torch.core.pipeline import RGLPipeline
+    from repro_torch.graph import delta
+    from repro_torch.serving.rag_engine import RAGServeEngine
+
+    apply_ms, fold_ms, bytes_seen, tiers = [], [], [], []
+    apply0, fold0, retrieve0 = (RAGServeEngine.apply_mutations, delta._fold_merged,
+                                RGLPipeline.retrieve)
+
+    def timed_apply(self, batch):
+        t0 = time.perf_counter()
+        report = apply0(self, batch)
+        torch.cuda.current_stream().synchronize()  # the apply's own stream, not the side one
+        apply_ms.append(1e3 * (time.perf_counter() - t0))
+        bytes_seen.append(tier_bytes(self.pipeline.mutation_store))
+        return report
+
+    def timed_fold(*a, **k):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fold0(*a, **k)
+        end.record()
+        end.synchronize()
+        fold_ms.append(start.elapsed_time(end))
+        return out
+
+    def recorded_retrieve(self, *a, **k):
+        tiers.append(self.mutation_store.active)
+        return retrieve0(self, *a, **k)
+
+    args = serve_args(mutate_rate=0.1, admission="continuous", prefetch_depth=1, **kw)
+    RAGServeEngine.apply_mutations, delta._fold_merged = timed_apply, timed_fold
+    RGLPipeline.retrieve = recorded_retrieve
+    try:
+        out, launches, overflow_rows = counted_serve(cfg, args, q_ids, stack=stack)
+    finally:
+        RAGServeEngine.apply_mutations, delta._fold_merged = apply0, fold0
+        RGLPipeline.retrieve = retrieve0
+    done, s = out["done"], out["stats"]
+    assert len(done) == 12 and all(r.done and not r.failed for r in done), name
+    store = out["engine"].pipeline.mutation_store
+    waves = out["retrieval_batches"]
+    assert len(tiers) == waves and s["mutation_batches"] == len(apply_ms) > 0, (tiers, s)
+    pristine = tiers.count(False)
+    assert pristine < waves, ("no wave read the merged graph", tiers)
+    check_serve_launches(out, launches, overflow_rows, args.index,
+                         topk_waves=pristine if args.index == "brute" else 0)
+    rec = {"mutation_run": name, "card": card, "index": args.index, "prefetch": s["prefetch"],
+           "batches": s["mutation_batches"], "epoch": s["mutation_epoch"],
+           "compactions": s["mutation_compactions"], "invalidated": s["invalidated"],
+           "stale_rejects": s["stale_rejects"], "nodes": store.n_nodes,
+           "capacity": store.capacity, "merged_width": store.graph.max_deg,
+           "apply_ms_median": statistics.median(apply_ms), "apply_ms_max": max(apply_ms),
+           "apply_ms": apply_ms, "fold_ms_median": statistics.median(fold_ms),
+           "fold_ms_max": max(fold_ms), "folds": len(fold_ms),
+           "active_tier_bytes": max(bytes_seen), "tok_per_s": out["tok_per_s"],
+           "frozen_tok_per_s": frozen["tok_per_s"],
+           "decode_ms_per_step": out["decode_ms_per_step"],
+           "frozen_decode_ms_per_step": frozen["decode_ms_per_step"], "waves": waves,
+           "pristine_waves": pristine, "launches": launches,
+           "launches_a_wave": {k: v / waves for k, v in launches.items()},
+           "hits": s["hits"], "misses": s["misses"]}
+    print(json.dumps(rec), flush=True)
+    return {"record": rec, "store": store, "done": {r.uid: r for r in done}}
+
+
+def zero_mutation_serve(cfg, stack, q_ids) -> dict:
+    """A pristine store-backed serve of the main path's mix: tokens and
+    retrieved nodes equal the frozen brute serve's, ``topk_sim`` launched
+    once a wave, the store never activated."""
+    from repro_torch.core.mutation import MutableGraphStore
+
+    store = MutableGraphStore.build(stack["g"], index_kind="brute", device="cuda")
+    pipe = store.make_pipeline(tokenizer=stack["pipe"].tokenizer, config=stack["pipe"].config)
+    out, launches, overflow_rows = counted_serve(cfg, serve_args(), q_ids,
+                                                 stack={**stack, "pipe": pipe})
+    check_serve_launches(out, launches, overflow_rows, "brute")
+    done = {r.uid: r for r in out["done"]}
+    for uid, r in done.items():
+        assert r.out_tokens == stack["frozen_tokens"][uid], uid
+        assert np.array_equal(r.retrieved_nodes, stack["served_nodes"][uid]), uid
+    assert store.epoch == 0 and not store.active and pipe.graph is store._pristine_ell
+    return {"tokens_equal_frozen": True, "nodes_equal_frozen": True, "launches": launches,
+            "waves": out["retrieval_batches"], "tok_per_s": out["tok_per_s"]}
+
+
+def steady_applies(store, rng, n: int = 24) -> dict:
+    """``n`` batches of the launcher's writer mix on an active store, each
+    timed on the host to the end of its current-stream work (its fold
+    included, which an attached pipeline's re-pointing runs), each fold by
+    CUDA events: the steady state a serve's few batches do not show."""
+    from repro_torch.graph import delta
+    from repro_torch.launch.serve import _writer_batch
+
+    fold_ms, apply_ms = [], []
+    fold0 = delta._fold_merged
+
+    def timed_fold(*a, **k):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fold0(*a, **k)
+        end.record()
+        end.synchronize()
+        fold_ms.append(start.elapsed_time(end))
+        return out
+
+    delta._fold_merged = timed_fold
+    try:
+        for _ in range(n):
+            batch = _writer_batch(rng, store)
+            t0 = time.perf_counter()
+            store.apply(batch)
+            store.graph
+            torch.cuda.current_stream().synchronize()
+            apply_ms.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        delta._fold_merged = fold0
+    return {"batches": n, "apply_ms_median": statistics.median(apply_ms),
+            "apply_ms_max": max(apply_ms), "fold_ms_median": statistics.median(fold_ms),
+            "fold_ms_max": max(fold_ms), "folds": len(fold_ms)}
+
+
+def crafted_batch(store, rng):
+    """A batch that kills base slots (two live slots of 32 rows), fills the
+    free slack of 8 rows exactly (no overflow), tombstones 32 nodes and adds
+    8 wired to live ones; applied and checked: no compaction ran."""
+    from repro_torch.core.mutation import MutationBatch
+
+    d = store.delta
+    n = store.n_nodes
+    alive = np.flatnonzero(store.alive)
+    picks = rng.choice(alive, 200, replace=False)
+    kill_rows, fill_rows, dead = picks[:32], picks[32:40], picks[40:72]
+    deletes = []  # two live base slots of each kill row
+    for u in kill_rows:
+        live = d.h_base_nbr[u][d.h_base_mask[u] & ~d.h_kill[u]]
+        deletes += [(int(u), int(v)) for v in live[:2]]
+    fills = []
+    for u in fill_rows:  # exactly the free slack of each row: no overflow
+        have = set(d.h_base_nbr[u][d.h_base_mask[u]].tolist())  # a killed slot would revive
+        have |= set(d.h_extra[u, :d.h_extra_cnt[u]].tolist()) | {int(u)}
+        free = d.extra_deg - int(d.h_extra_cnt[u])
+        targets = [int(v) for v in rng.choice(alive, 4 * d.extra_deg) if int(v) not in have]
+        fills += [(int(u), v) for v in list(dict.fromkeys(targets))[:free]]
+    feat = rng.standard_normal((8, store.h_feat.shape[1])).astype(np.float32)
+    batch = MutationBatch(add_node_feat=feat, add_node_text=[f"new {n + i}" for i in range(8)],
+                          add_edges=np.array(fills + [(n + i, int(alive[i])) for i in range(8)]),
+                          del_edges=np.array(deletes), del_nodes=dead, symmetric=False)
+    before = store.compactions
+    t0 = time.perf_counter()
+    report = store.apply(batch)
+    torch.cuda.current_stream().synchronize()
+    apply_ms = 1e3 * (time.perf_counter() - t0)
+    assert store.compactions == before, "the crafted batch overflowed and compacted"
+    assert report.edges_deleted == len(deletes) and int(d.h_kill.sum()) >= len(deletes)
+    assert report.edges_added == len(fills) + 8
+    assert (d.h_extra_cnt[fill_rows] == d.extra_deg).all() and d.tomb[dead].all()
+    return np.concatenate([kill_rows, fill_rows, dead]), alive, apply_ms
+
+
+def merged_hops(store, frozen_ell, rng) -> dict:
+    """After :func:`crafted_batch`: ``bfs_frontier`` and ``ws_mark`` on the
+    store's merged graph, bit for bit against their plain versions; the
+    hop's plan and time beside the frozen graph's."""
+    from repro_torch.core.workset import build_workset
+    from repro_torch.kernels.bfs_frontier import kernel as bfs_kernel
+    from repro_torch.kernels.bfs_frontier import ops as bfs_ops
+    from repro_torch.kernels.frontier_expand import ops as fe_ops
+
+    rows, alive, apply_ms = crafted_batch(store, rng)
+    d = store.delta
+    g = store.graph
+    nbr, mask = g.nbr, g.nbr_mask
+    cap, width = nbr.shape
+    assert width == d.base_deg + d.extra_deg, width
+    frontier = torch.from_numpy(rng.random((4, cap)) < 1e-3).to(nbr.device)
+    frontier[:, torch.from_numpy(rows).to(nbr.device)] = True
+    got = bfs_ops.frontier_hop(frontier, nbr, mask, use_kernel=True)
+    torch.cuda.synchronize()
+    plan = dataclasses.asdict(bfs_kernel.last_plan)
+    assert torch.equal(got, bfs_ops.frontier_hop(frontier, nbr, mask, use_kernel=False)), \
+        ("bfs_frontier differs from its plain version on the merged graph", width)
+    fn, fk = frozen_ell.nbr, frozen_ell.nbr_mask
+    ffront = frontier[:, :fn.shape[0]].contiguous()
+    bfs_ops.frontier_hop(ffront, fn, fk, use_kernel=True)
+    torch.cuda.synchronize()
+    frozen_plan = dataclasses.asdict(bfs_kernel.last_plan)
+    if width == 1032:  # 16-row tiles, where K = 1016 takes 32
+        assert plan["rows"] == 16 and frozen_plan["rows"] == 32, (plan, frozen_plan)
+    hop_ms, frozen_hop_ms = [], []
+    for _ in range(2):  # in turns: merged, frozen, merged, frozen
+        hop_ms.append(time_ms(lambda: bfs_ops.frontier_hop(frontier, nbr, mask, use_kernel=True)))
+        frozen_hop_ms.append(time_ms(lambda: bfs_ops.frontier_hop(ffront, fn, fk,
+                                                                   use_kernel=True)))
+    seeds = torch.from_numpy(np.stack([rng.choice(alive, 3) for _ in range(4)])
+                             .astype(np.int32)).to(nbr.device)
+    ws = build_workset(nbr, mask, seeds, max_hops=2, cap=2048, use_kernel=False)
+    cand = fe_ops.hop_candidates(ws.ids, nbr, mask)
+    marks = fe_ops.ws_member(ws.ids, cand, use_kernel=True)
+    torch.cuda.synchronize()
+    assert torch.equal(marks, fe_ops.ws_member(ws.ids, cand, use_kernel=False)), \
+        ("ws_mark differs from its plain version on the merged graph", width)
+    return {"merged_shape": [cap, width], "killed_slots": int(d.h_kill.sum()),
+            "full_slack_rows": int((d.h_extra_cnt == d.extra_deg).sum()),
+            "tombstones": int(d.tomb.sum()), "crafted_apply_ms": apply_ms,
+            "bfs_plan": plan, "bfs_plan_frozen": frozen_plan, "hop_ms": hop_ms,
+            "frozen_hop_ms": frozen_hop_ms, "ws_mark_candidates": list(cand.shape)}
+
+
+def merged_kernels_check(card: str, store, ivf_store, stack, rng) -> dict:
+    """The retrieval kernels on inputs only mutation makes: after
+    :func:`crafted_batch`, ``bfs_frontier`` and ``ws_mark`` on two merged
+    graphs, the serve's store (its canonical base is 1000 wide: the
+    generator's duplicate arcs go at activation, so the merged view is
+    1000 + 16 = 1016 wide) and a store built with ``max_deg=1016`` (the
+    frozen width: merged 1032, 16-row hop tiles), bit for bit against their
+    plain versions, each hop timed beside the frozen graph's in turns; and
+    ``ivf_scan`` on the IVF store's candidates with deleted rows masked out,
+    against both plain arms."""
+    from repro_torch.core import indexing as ix
+    from repro_torch.core.mutation import MutableGraphStore, MutationBatch
+    from repro_torch.kernels.ivf_scan import ops as ivf_ops
+
+    frozen_ell = stack["pipe"].graph
+    steady = steady_applies(store, rng)
+    hops = {"serve_store": merged_hops(store, frozen_ell, rng)}
+    wide = MutableGraphStore.build(stack["g"], index_kind="brute", max_deg=frozen_ell.max_deg,
+                                   device="cuda")
+    wide.apply(MutationBatch(add_edges=np.array([[0, 1]])))  # activate
+    hops["fixed_width_store"] = merged_hops(wide, frozen_ell, rng)
+    del wide
+
+    gone = np.flatnonzero(ivf_store.alive)[:4]
+    qn = ix.l2_normalize(torch.from_numpy(ivf_store.h_feat[gone]).cuda())
+    ivf_store.apply(MutationBatch(del_nodes=gone))  # the queries' own rows go
+    idx = ivf_store.index
+    lists, lmask = idx._device_lists()
+    cand_i, open_ = ix.ivf_candidates(idx.centroids, lists, lmask, qn, idx.nprobe)
+    cmask = open_ & idx.valid[cand_i.clamp(max=idx.emb.shape[0] - 1)]
+    masked = int((open_ & ~cmask).sum())
+    assert masked >= 1, masked
+    s_k, i_k = ivf_ops.ivf_candidate_scan(qn, idx.emb, cand_i, cmask, 3, use_kernel=True)
+    torch.cuda.synchronize()
+    for tiled in (False, True):
+        s_p, i_p = ivf_ops.ivf_candidate_scan(qn, idx.emb, cand_i, cmask, 3, tiled=tiled,
+                                              use_kernel=False)
+        assert torch.equal(s_k, s_p) and torch.equal(i_k, i_p), ("ivf_scan", tiled)
+    assert not np.isin(i_k.cpu().numpy(), gone).any()
+    rec = {"merged_kernels": "bit for bit against the plain versions", "card": card,
+           "steady_applies": steady, "hops": hops, "ivf_masked_candidate_slots": masked,
+           "ivf_candidates": list(cand_i.shape)}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def torn_read_probe(card: str, cfg, stack, store) -> dict:
+    """A prefetched wave (dense mode: its launch syncs nothing) queued on the
+    side stream behind ``torch.cuda._sleep``; then, before it runs, a batch
+    deleting its queried nodes, a compaction and a large ``torch.full`` on
+    the current stream, where the allocator would reuse the old snapshot's
+    memory were the wave not holding it.  The served nodes equal the
+    launch-time snapshot's retrieval on the CPU, and the cache's put-gate
+    refuses the superseded results."""
+    from repro_torch.core.mutation import MutationBatch
+    from repro_torch.core.pipeline import RGLPipeline
+    from repro_torch.serving.rag_engine import RAGRequest, RAGServeEngine
+
+    g = stack["g"]
+    pipe = store.make_pipeline(tokenizer=stack["pipe"].tokenizer, config=dataclasses.replace(
+        stack["pipe"].config, retrieval_mode="dense"))
+    eng = RAGServeEngine(pipe, stack["params"], stack["cfg"], slots=4,
+                         cache_len=max(cfg.sliding_window or 0, 96 + 2 + 1), prefetch=True,
+                         device="cuda")
+    alive = np.flatnonzero(store.alive)
+    qs = alive[np.random.default_rng(31).choice(alive.size, 4, replace=False)]
+    qe = store.h_feat[qs]
+    # the launch-time snapshot, on the CPU
+    snap = RGLPipeline(graph=dataclasses.replace(pipe.graph, nbr=pipe.graph.nbr.cpu(),
+                                                 nbr_mask=pipe.graph.nbr_mask.cpu()),
+                       index=dataclasses.replace(pipe.index, emb=pipe.index.emb.cpu(),
+                                                 valid=pipe.index.valid.cpu()),
+                       node_emb=pipe.node_emb.cpu(), config=pipe.config, device="cpu")
+    t0 = time.perf_counter()
+    want = snap.retrieve_many(qe, batch_size=4)
+    cpu_s = time.perf_counter() - t0
+    old_ptr = pipe.graph.nbr.data_ptr()
+    old_shape, old_bytes = tuple(pipe.graph.nbr.shape), pipe.graph.nbr.numel() * 4
+    side = eng.prefetcher.side_stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(4 * SLEEP_CYCLES)
+    for u, q in enumerate(qs):
+        eng.submit(RAGRequest(uid=u, query_emb=qe[u], query_text=" ".join(
+            g.node_text[int(q)].split()[:4]) if int(q) < len(g.node_text) else "new node",
+            max_new_tokens=2))
+    eng._launch_pending()
+    assert eng.prefetcher.in_flight == 1 and eng.prefetcher.ready_index() is None
+    eng.apply_mutations(MutationBatch(del_nodes=qs))  # fold on the current stream
+    junk = [torch.full(old_shape, -7, dtype=torch.int32, device="cuda") for _ in range(3)]
+    waiting = not eng.prefetcher._waves[0].arrs[0].event.query()
+    store.compact()  # new base, index and embeddings on the current stream
+    junk += [torch.full(old_shape, -7, dtype=torch.int32, device="cuda") for _ in range(3)]
+    reused = any(j.data_ptr() == old_ptr for j in junk)
+    done = {r.uid: r for r in eng.run_to_completion()}
+    for u in range(4):
+        row = want.nodes[u][want.mask[u]].numpy()
+        assert np.array_equal(done[u].retrieved_nodes, row), ("torn read", u)
+    s = eng.cache.stats()
+    assert s["stale_rejects"] >= 1, s
+    del junk
+    rec = {"torn_read_probe": "served nodes equal the launch-time snapshot's CPU retrieval",
+           "card": card, "wave_waiting_at_overwrite": waiting,
+           "old_snapshot_memory_reused": reused, "snapshot_nbr_bytes": old_bytes,
+           "stale_rejects": s["stale_rejects"], "invalidated": s["invalidated"],
+           "cpu_reference_s": cpu_s}
+    print(json.dumps(rec), flush=True)
+    assert waiting, "the wave ran before the overwrite: the probe tested nothing"
+    return rec
+
+
+def compaction_check(card: str, store) -> dict:
+    """``compact()`` of a mutated full-scale IVF store against
+    ``MutableGraphStore.build(..., active=True, alive=...)`` on the merged
+    corpus with the same quantizer: merged graph, embeddings, index rows,
+    lists and counts bit for bit; the compaction timed in seconds."""
+    from repro_torch.core.mutation import MutableGraphStore
+    from repro_torch.graph.csr import CSRGraph
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store.compact()
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    n = store.n_nodes
+    src, dst = store.delta.live_edge_list()
+    g2 = CSRGraph.from_edges(src, dst, n, node_feat=store.h_feat[:n].copy(),
+                             node_text=list(store.node_text[:n]))
+    t0 = time.perf_counter()
+    fresh = MutableGraphStore.build(
+        g2, index_kind="ivf", alive=store.alive, active=True, device="cuda",
+        index_kw={"centroids": store.index.centroids.cpu().numpy(),
+                  "nprobe": store.index.nprobe})
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    a, b = store.index, fresh.index
+    for name, x, y in (("nbr", store.graph.nbr, fresh.graph.nbr),
+                       ("nbr_mask", store.graph.nbr_mask, fresh.graph.nbr_mask),
+                       ("node_emb", store.node_emb, fresh.node_emb), ("index.emb", a.emb, b.emb),
+                       ("valid", a.valid, b.valid)):
+        assert torch.equal(x, y), name
+    assert np.array_equal(a.h_lists, b.h_lists) and np.array_equal(a.h_counts, b.h_counts)
+    rec = {"compaction": "bitwise equal to a from-scratch build", "card": card,
+           "compact_s": compact_s, "from_scratch_build_s": build_s, "nodes": n,
+           "alive": int(store.alive.sum()), "capacity": store.capacity,
+           "base_width": store.delta.base_deg, "lists": list(a.h_lists.shape),
+           "active_tier_bytes": tier_bytes(store)}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def mutation_cross_device_check(reduced_cfg) -> dict:
+    """The gate of item 13: reduced fp32, the 3,000-node graph, the
+    launcher's seeded writer (``--mutate-rate 0.3 --compact-every 2``),
+    continuous admission (so that retrieval runs between batches), sync and
+    prefetched (depth = slots) on a virtual clock, on the card and on the
+    CPU with the same weights: per-uid outcomes, cache hits and misses, and
+    the epoch, compactions, invalidations and stale rejects agree."""
+    from repro_torch.launch.serve import _serve_rag
+
+    distinct = np.random.default_rng(0).choice(3000, 8, replace=False)
+    q_ids = np.concatenate([distinct, distinct[:4]])
+    keys = ("hits", "misses", "retrieval_batches", "mutation_batches", "mutation_epoch",
+            "mutation_compactions", "mutation_n_nodes", "mutation_alive_nodes", "invalidated",
+            "stale_rejects", "graph_epoch", "prefetch_waves", "decode_steps")
+    summary, params = {}, None
+    for name, pf in (("sync", False), ("prefetch", True)):
+        kw = dict(nodes=3000, cache_len=112, mutate_rate=0.3, compact_every=2, prefetch=pf,
+                  admission="continuous")
+        card = _serve_rag(reduced_cfg, serve_args(**kw), q_ids=q_ids, params=params,
+                          **virtual_clock())
+        params = card["params"]
+        host = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v.cpu())
+                for k, v in params.items()}
+        cpu = _serve_rag(reduced_cfg, serve_args(device="cpu", **kw), q_ids=q_ids, params=host,
+                         **virtual_clock())
+        runs = [{r.uid: r for r in out["done"]} for out in (card, cpu)]
+        assert sorted(runs[0]) == sorted(runs[1]) == list(range(12)), name
+        for uid, a in runs[0].items():
+            assert outcome(a) == outcome(runs[1][uid]), (name, uid)
+        sa, sb = card["stats"], cpu["stats"]
+        for key in keys:
+            assert sa[key] == sb[key], (name, key, sa[key], sb[key])
+        summary[name] = {k: sa[k] for k in keys}
+    assert all(summary[m]["mutation_batches"] > 0 for m in summary), summary
+    return summary
+
+
+def mutation_phase(card: str, cfg, stack) -> dict:
+    """Queue 1 item 13 at full width: (a) a pristine store-backed serve equal
+    to the frozen one; (b) mutating serves (brute sync, brute prefetched,
+    IVF sync), each beside the frozen serve of its schedule; (c) steady
+    applies timed, then the retrieval kernels on merged graphs and
+    delete-masked candidates; (d) the torn-read probe; (e) a full-scale
+    compaction against a from-scratch build.  One summary line."""
+    from repro_torch.core.pipeline import index_from_config
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(13)
+    distinct = np.random.default_rng(0).choice(N_NODES, 8, replace=False)
+    q_ids = np.concatenate([distinct, distinct[:4]])
+    zero = zero_mutation_serve(cfg, stack, q_ids)
+    frozen = {}  # the frozen serves of the mutating serves' schedule
+    pipe = stack["pipe"]
+    ivf_cfg = dataclasses.replace(pipe.config, index_kind="ivf")
+    ivf_pipe = dataclasses.replace(pipe, config=ivf_cfg, index=index_from_config(
+        pipe.node_emb, ivf_cfg, device=pipe.device))
+    for index, p in (("brute", pipe), ("ivf", ivf_pipe)):
+        args = serve_args(admission="continuous", prefetch_depth=1, index=index)
+        out, launches, overflow_rows = counted_serve(cfg, args, q_ids, stack={**stack, "pipe": p})
+        check_serve_launches(out, launches, overflow_rows, index)
+        frozen[index] = {"tok_per_s": out["tok_per_s"],
+                         "decode_ms_per_step": out["decode_ms_per_step"]}
+    runs = {"brute_sync": mutation_serve(card, "brute_sync", cfg, stack, q_ids, frozen["brute"]),
+            "brute_prefetch": mutation_serve(card, "brute_prefetch", cfg, stack, q_ids,
+                                             frozen["brute"], prefetch=True),
+            "ivf_sync": mutation_serve(card, "ivf_sync", cfg, stack, q_ids, frozen["ivf"],
+                                       index="ivf")}
+    del runs["brute_sync"]["store"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels = merged_kernels_check(card, runs["brute_prefetch"]["store"],
+                                   runs["ivf_sync"]["store"], stack, rng)
+    probe = torn_read_probe(card, cfg, stack, runs["brute_prefetch"]["store"])
+    compaction = compaction_check(card, runs["ivf_sync"]["store"])
+    summary = {"card": card, "phase_s": time.perf_counter() - t0, "zero_mutation": zero,
+               "runs": {k: {f: v["record"][f] for f in (
+                   "batches", "epoch", "compactions", "invalidated", "stale_rejects",
+                   "apply_ms_median", "apply_ms_max", "fold_ms_median", "active_tier_bytes",
+                   "tok_per_s", "frozen_tok_per_s", "launches_a_wave")}
+                   for k, v in runs.items()},
+               "steady_applies": kernels["steady_applies"],
+               "hop_ms_frozen_merged": {
+                   k: [v["frozen_hop_ms"], v["hop_ms"], v["merged_shape"][1], v["bfs_plan"]["rows"]]
+                   for k, v in kernels["hops"].items()},
+               "torn_read_unchanged": True,
+               "probe_memory_reused": probe["old_snapshot_memory_reused"],
+               "compact_s": compaction["compact_s"]}
+    print(json.dumps({"mutation_phase": summary}), flush=True)
+    return summary
 
 
 def profile_decode(engine, steps: int = 5) -> dict:
@@ -2440,6 +2924,8 @@ def main() -> int:
     spec_runs = spec_phase(card, spec.model_cfg, params,
                            {"contiguous": brute_tokens, **paged["tokens"]})["runs"]
     item12_phases(card, spec.model_cfg, stack, brute_tokens)
+    stack["frozen_tokens"] = brute_tokens
+    mutation_phase(card, spec.model_cfg, stack)
     del params, stack
     print(json.dumps({"main_path": "the same with the IVF index (64 lists, nprobe 4)",
                       "card": card, **mp_ivf}), flush=True)
@@ -2482,6 +2968,8 @@ def main() -> int:
     print(json.dumps({"spec_cross_device": spec_cross_device_check(spec.reduced_cfg)}),
           flush=True)
     print(json.dumps({"fleet_cross_device": fleet_cross_device_check(spec.reduced_cfg)}),
+          flush=True)
+    print(json.dumps({"mutation_cross_device": mutation_cross_device_check(spec.reduced_cfg)}),
           flush=True)
     overflowed = cross_device_check(spec.reduced_cfg)
     print(f"cross-device check: card and CPU agree on nodes, prompts and tokens (auto, "

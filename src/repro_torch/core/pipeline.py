@@ -2,8 +2,10 @@
 graph retrieval -> dynamic filtering -> tokenization -> generation.
 
 ``RGLPipeline`` is the OOP API; every stage is also a function in its own
-module.  This port serves a frozen corpus: ``epoch`` is always 0 and no
-mutation store is attached.
+module.  A pipeline over a frozen corpus has no mutation store and serves
+epoch 0 forever; one attached to a
+:class:`~repro_torch.core.mutation.MutableGraphStore` is re-pointed to the
+store's current snapshot on every mutation and reports its epoch.
 """
 from __future__ import annotations
 
@@ -83,15 +85,35 @@ class RGLPipeline:
     node_text: Optional[list] = None
     config: PipelineConfig = dataclasses.field(default_factory=PipelineConfig)
     device: object = "cuda"  # where the graph, index and embeddings live
-
-    epoch = 0  # frozen corpus: the graph never mutates
-    mutation_store = None
+    # set by MutableGraphStore.make_pipeline / attach; a frozen-corpus
+    # pipeline leaves it None (epoch stays 0 forever)
+    mutation_store: Optional[object] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         for name, t in (("graph.nbr", self.graph.nbr), ("node_emb", self.node_emb)):
             if t.device.type != self.device.type:
                 raise ValueError(f"{name} lives on {t.device}, the pipeline on {self.device}")
+        if self.mutation_store is not None:
+            # a store re-points only the pipelines attached to it, so every
+            # copy (dataclasses.replace runs this too) attaches itself
+            self.mutation_store.attach(self)
+
+    @property
+    def epoch(self) -> int:
+        """Monotonic graph mutation epoch this pipeline currently serves."""
+        store = self.mutation_store
+        return 0 if store is None else int(store.epoch)
+
+    @property
+    def n_valid_nodes(self) -> int:
+        """Upper bound (exclusive) on the node ids a retrieval may return:
+        with a mutation store the tensors are capacity-padded, so the logical
+        node count, not the tensor length, bounds the valid ids."""
+        store = self.mutation_store
+        if store is not None:
+            return int(store.n_nodes)
+        return int(self.node_emb.shape[0])
 
     # ---- functional stages --------------------------------------------------
     def retrieve_seeds(self, query_emb, encoder=None):

@@ -46,6 +46,22 @@ def csr_to_ell(
     """Convert CSR → ELL on the host (the reference's exact layout), then
     move it to ``device``."""
     dev = resolve_device(device)
+    nbr, mask = ell_arrays(g, max_deg, pad_to_multiple=pad_to_multiple)
+    feat = None
+    if g.node_feat is not None:
+        feat = torch.from_numpy(np.asarray(g.node_feat, np.float32)).to(dev)
+    return ELLGraph(
+        nbr=torch.from_numpy(nbr).to(dev),
+        nbr_mask=torch.from_numpy(mask).to(dev),
+        num_nodes=g.num_nodes,
+        node_feat=feat,
+    )
+
+
+def ell_arrays(g: CSRGraph, max_deg: Optional[int] = None, *,
+               pad_to_multiple: int = 8) -> tuple[np.ndarray, np.ndarray]:
+    """The host arrays of :func:`csr_to_ell`: (nbr (N, K) int32 with
+    sentinel N, mask (N, K) bool)."""
     deg = g.degrees()
     if max_deg is None:
         max_deg = int(deg.max()) if g.num_nodes else 1
@@ -60,15 +76,7 @@ def csr_to_ell(
     src_pos = np.repeat(g.indptr[:-1], take) + slots
     nbr[rows, slots] = g.indices[src_pos]
     mask = np.arange(max_deg)[None, :] < take[:, None]
-    feat = None
-    if g.node_feat is not None:
-        feat = torch.from_numpy(np.asarray(g.node_feat, np.float32)).to(dev)
-    return ELLGraph(
-        nbr=torch.from_numpy(nbr).to(dev),
-        nbr_mask=torch.from_numpy(mask).to(dev),
-        num_nodes=n,
-        node_feat=feat,
-    )
+    return nbr, mask
 
 
 def _ranges(counts: np.ndarray) -> np.ndarray:

@@ -7,6 +7,9 @@ seeded retrieval faults (``--retries``, ``--retrieval-timeout`` and the
 degradation ladder contain them); ``--replicas N`` serves through N engines
 behind ``ReplicaRouter`` with a shared retrieval cache, and
 ``--crash-replica STEP`` crashes the last one mid-run (failover).
+``--mutate-rate`` serves over a :class:`~repro_torch.core.mutation.MutableGraphStore`
+while a seeded writer mutates the corpus between engine steps
+(``--compact-every`` compacts every N batches).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b --rag
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b --rag \
@@ -19,6 +22,8 @@ behind ``ReplicaRouter`` with a shared retrieval cache, and
         --spec-decode --draft-window 4 --paged-kv --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b --rag \
         --device cpu --prefetch --fault-rate 0.25 --retries 2 --replicas 2 --crash-replica 3
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b --rag \
+        --device cpu --nodes 1000 --mutate-rate 0.1
 
 The CLI serves the arch's reduced config, as the reference launcher does;
 :func:`_serve_rag` takes any config (``chip_smoke.py`` passes the full one).
@@ -35,6 +40,7 @@ import torch
 
 from repro_torch import configs as C
 from repro_torch import resolve_device
+from repro_torch.core.mutation import MutableGraphStore, MutationBatch
 from repro_torch.core.pipeline import PipelineConfig, RGLPipeline, index_from_config
 from repro_torch.core.tokenization import GraphTokenizer, Vocab
 from repro_torch.graph import generators
@@ -107,11 +113,19 @@ def _serve_rag(cfg, args, q_ids: Optional[np.ndarray] = None,
     g, pipe, cfg, params = stack["g"], stack["pipe"], stack["cfg"], stack["params"]
     dev = pipe.device
     if pipe.config.retrieval_mode != args.retrieval:
+        # a copy: the stack's pipeline serves other runs (a store re-points
+        # the copy too: RGLPipeline.__post_init__ attaches it)
         pipe = dataclasses.replace(pipe, config=dataclasses.replace(
             pipe.config, retrieval_mode=args.retrieval))
-    if getattr(args, "mutate_rate", 0.0):
-        raise NotImplementedError("--mutate-rate is not ported yet: ROADMAP Queue 1 item 13 "
-                                  "(online mutation)")
+    store = None
+    if getattr(args, "mutate_rate", 0.0) > 0:
+        if args.index not in MutableGraphStore.MUTABLE_INDEX_KINDS:
+            raise SystemExit(f"--mutate-rate needs --index in "
+                             f"{MutableGraphStore.MUTABLE_INDEX_KINDS}, got {args.index!r}")
+        # a store of its own over the stack's graph: the writer mutates it
+        store = MutableGraphStore.build(g, index_kind=args.index, device=dev)
+        pipe = store.make_pipeline(tokenizer=pipe.tokenizer, config=dataclasses.replace(
+            pipe.config, index_kind=args.index))
     fault_rate = getattr(args, "fault_rate", 0.0)
     if fault_rate > 0:
         # a seeded share of retrieval rows raise, stall or corrupt, through
@@ -163,9 +177,12 @@ def _serve_rag(cfg, args, q_ids: Optional[np.ndarray] = None,
             query_text=" ".join(g.node_text[qi].split()[:4]),
             max_new_tokens=args.max_new,
         ))
-    # drain() never raises: under fault injection or tight deadlines the
-    # stragglers are aborted and reported instead of crashing the launcher
-    done = server.drain()
+    if store is not None and replicas == 1:  # the reference's fleet serves without the writer
+        done = _drain_with_mutations(server, store, args)
+    else:
+        # drain() never raises: under fault injection or tight deadlines the
+        # stragglers are aborted and reported instead of crashing the launcher
+        done = server.drain()
     dt = time.perf_counter() - t0
     ok = [r for r in done if r.done and not r.failed]
     toks = sum(len(r.out_tokens) for r in ok)
@@ -183,6 +200,42 @@ def _serve_rag(cfg, args, q_ids: Optional[np.ndarray] = None,
     if replicas > 1:
         out["router_stats"] = server.stats()
     return out
+
+
+def _drain_with_mutations(eng, store, args, max_steps: int = 10_000) -> list:
+    """Serve to completion while a seeded writer mutates the live corpus:
+    after each engine step, with probability ``--mutate-rate``, one batch
+    (an edge insert, an edge delete, or a node add wired to two anchors)
+    lands through ``apply_mutations``: the reference launcher's writer,
+    draw for draw."""
+    rng = np.random.default_rng(getattr(args, "fault_seed", 0) + 1)
+    done = []
+    for _ in range(max_steps):
+        done.extend(eng.step())
+        if eng._drained():
+            return done
+        if rng.random() >= args.mutate_rate:
+            continue
+        eng.apply_mutations(_writer_batch(rng, store))
+    done.extend(eng.abort(reason=f"drain gave up after {max_steps} steps"))
+    return done
+
+
+def _writer_batch(rng: np.random.Generator, store) -> MutationBatch:
+    """One batch of the writer's mix: an edge insert (45%), an edge delete
+    (45%, a no-op if the edge does not exist) or a node wired to two random
+    anchors (10%)."""
+    kind = rng.random()
+    n = store.n_nodes
+    if kind < 0.45:
+        return MutationBatch(add_edges=np.array([[rng.integers(0, n), rng.integers(0, n)]]))
+    if kind < 0.9:
+        return MutationBatch(del_edges=np.array([[rng.integers(0, n), rng.integers(0, n)]]))
+    feat = rng.normal(size=(1, store.h_feat.shape[1] if store.active
+                            else store.node_emb.shape[1]))
+    return MutationBatch(
+        add_node_feat=feat.astype(np.float32), add_node_text=[f"live node {n}"],
+        add_edges=np.array([[n, rng.integers(0, n)], [n, rng.integers(0, n)]]))
 
 
 def _print_kv_stats(s: dict) -> None:
@@ -297,9 +350,12 @@ def main(argv=None):
                     help="router steps an open circuit waits before a half-open probe (also "
                          "the crashed-replica revival interval)")
     ap.add_argument("--mutate-rate", type=float, default=0.0,
-                    help="online mutation (not ported yet: ROADMAP Queue 1 item 13)")
+                    help="online mutation: probability per engine step of one seeded mutation "
+                         "batch (edge insert / delete / node add) between steps (needs --index "
+                         "brute or ivf; 0 = frozen corpus)")
     ap.add_argument("--compact-every", type=int, default=None,
-                    help="online mutation compaction (not ported yet: ROADMAP Queue 1 item 13)")
+                    help="compact the mutation delta every N batches (default honors "
+                         "RGL_COMPACT_EVERY, 0 = only on overflow)")
     ap.add_argument("--fault-rate", type=float, default=0.0,
                     help="inject seeded retrieval faults on this share of query rows (0 = off)")
     ap.add_argument("--fault-seed", type=int, default=0,
@@ -318,6 +374,10 @@ def main(argv=None):
           f"on {args.device}; {s['retrieval_batches']} retrieval batches, "
           f"cache {s['hits']}/{s['hits'] + s['misses']} hits")
     _print_fault_stats(s, args.fault_rate)
+    if s.get("mutation_batches"):
+        print(f"  mutation: {s['mutation_batches']} batches (epoch {s['mutation_epoch']}, "
+              f"{s['mutation_compactions']} compactions, {s['mutation_invalidated']} cache "
+              f"entries invalidated, {s['stale_rejects']} stale puts rejected)")
     _print_kv_stats(s)
     return out
 

@@ -30,8 +30,14 @@ cache releases a pin when its entry leaves (eviction, overwrite, TTL purge)
 and, through :meth:`RetrievalCache.reclaim_kv`, under pool pressure, so
 cache lifetime, not request lifetime, bounds how long prefilled KV stays.
 
-Not ported yet: mutation epochs and region invalidation (ROADMAP Queue 1
-item 13).
+When the corpus mutates under serving (:mod:`repro_torch.core.mutation`),
+the cache is **versioned**: every entry records the mutation ``epoch`` it
+was retrieved against and its ``region`` (the node-id buckets its subgraph
+and seeds touch), and :meth:`RetrievalCache.invalidate_regions` drops only
+the entries whose region a mutation touched, releasing their KV pins;
+entries over other regions survive the epoch bump.  ``put`` refuses a
+result collected against a superseded region (an in-flight wave that raced
+a mutation), so staleness for touched regions is bounded by one epoch.
 """
 from __future__ import annotations
 
@@ -56,7 +62,10 @@ class CachedRetrieval:
     mask: np.ndarray  # (M,) bool
     dist: np.ndarray  # (M,) int32 hop distances
     seeds: np.ndarray  # (S,) int32 seed node ids
-    epoch: int = 0  # graph epoch the retrieval ran against (0: frozen corpus)
+    # the mutation epoch this retrieval ran against, and the node-id buckets
+    # its subgraph + seeds touch (computed by put())
+    epoch: int = 0
+    region: frozenset | None = None
     kv_blocks: np.ndarray | None = None  # (nblk,) int32 pool block ids
     kv_len: int = 0  # prompt tokens the pinned blocks cover
     kv_first_tok: int = -1  # prefill argmax recorded at pin time
@@ -86,13 +95,18 @@ class RetrievalCache:
     """
 
     def __init__(self, capacity: int = 256, quant_eps: float = 1e-3, *,
-                 policy: str = "lru", ttl: float | None = None, now_fn=time.monotonic):
+                 policy: str = "lru", ttl: float | None = None, region_bucket: int = 32,
+                 mutation_flush: str = "region", now_fn=time.monotonic):
         if policy not in POLICIES:
             raise ValueError(f"policy must be one of {POLICIES}, got {policy!r}")
+        if mutation_flush not in ("region", "all"):
+            raise ValueError(f"mutation_flush must be 'region' or 'all', got {mutation_flush!r}")
         self.capacity = capacity
         self.quant_eps = quant_eps
         self.policy = policy
         self.ttl = ttl
+        self.region_bucket = max(1, int(region_bucket))
+        self.mutation_flush = mutation_flush
         self._now = now_fn
         self._data: OrderedDict[bytes, _Slot] = OrderedDict()  # recency order
         # dispatched-but-uncollected keys -> the owner wave's entries_by_key
@@ -104,6 +118,13 @@ class RetrievalCache:
         self.expired = 0
         self.stale_hits = 0  # peek_stale found a resident (maybe expired) entry
         self.stale_misses = 0  # peek_stale found nothing resident
+        # graph-mutation versioning: the newest epoch a mutation reached, and
+        # a bounded log of (epoch, touched buckets) for put()'s gate
+        self.graph_epoch = 0
+        self._touched_log: list[tuple[int, frozenset]] = []
+        self._touched_log_max = 256
+        self.invalidated = 0  # entries dropped by invalidate_regions
+        self.stale_rejects = 0  # put() refused a superseded-region entry
 
     def __len__(self) -> int:
         return len(self._data)
@@ -201,8 +222,55 @@ class RetrievalCache:
         self._release_kv(self._data.pop(victim).entry)
         self.evictions += 1
 
+    # -- graph-mutation versioning --------------------------------------------
+    def _region_of(self, entry: CachedRetrieval) -> frozenset:
+        """Node-id buckets an entry's subgraph + seeds touch."""
+        nodes = np.asarray(entry.nodes)[np.asarray(entry.mask, bool)]
+        ids = np.concatenate([nodes.ravel(), np.asarray(entry.seeds).ravel()])
+        return frozenset((ids.astype(np.int64) // self.region_bucket).tolist())
+
+    def _conflicts_since(self, epoch: int, region: frozenset | None) -> bool:
+        """Did any mutation after ``epoch`` touch ``region``?  Conservative:
+        an epoch older than the bounded log (or an unknown region) counts
+        as a conflict."""
+        if self._touched_log and epoch < self._touched_log[0][0] - 1:
+            return True
+        for e, touched in self._touched_log:
+            if e <= epoch:
+                continue
+            if region is None or (region & touched):
+                return True
+        return False
+
+    def invalidate_regions(self, touched_nodes, epoch: int) -> int:
+        """A mutation reached ``epoch`` after touching ``touched_nodes``:
+        drop every entry whose region meets the touched buckets (releasing
+        its KV pin), so no later lookup, ``peek_stale`` included, serves a
+        superseded result; ``mutation_flush="all"`` drops every entry.
+        Endpoints of added edges count as touched, so an entry that should
+        now include a new neighbour goes too.  Returns the entries dropped."""
+        ids = np.asarray(touched_nodes, np.int64).ravel()
+        buckets = frozenset((ids // self.region_bucket).tolist())
+        self.graph_epoch = max(self.graph_epoch, int(epoch))
+        self._touched_log.append((int(epoch), buckets))
+        del self._touched_log[: -self._touched_log_max]
+        victims = [k for k, slot in self._data.items()
+                   if self.mutation_flush == "all" or slot.entry.region is None
+                   or (slot.entry.region & buckets)]
+        for k in victims:
+            self._release_kv(self._data.pop(k).entry)
+        self.invalidated += len(victims)
+        return len(victims)
+
     def put(self, query_emb, entry: CachedRetrieval) -> None:
         if self.capacity <= 0:
+            return
+        if entry.region is None:
+            entry.region = self._region_of(entry)
+        if entry.epoch < self.graph_epoch and self._conflicts_since(entry.epoch, entry.region):
+            # collected after a mutation superseded its region (a wave launched
+            # before the mutation): served to its requester, never cached
+            self.stale_rejects += 1
             return
         now = self._now()
         k = self.key(query_emb)
@@ -273,6 +341,9 @@ class RetrievalCache:
             "kv_pinned_entries": self.kv_pinned_entries(),
             "inflight": len(self._inflight),
             "hit_rate": self.hits / total if total else 0.0,
+            "graph_epoch": self.graph_epoch,
+            "invalidated": self.invalidated,
+            "stale_rejects": self.stale_rejects,
         }
 
     def stats_ns(self) -> dict:

@@ -34,9 +34,18 @@ and ``__array__``.
   the device results are read only there (by the copies) and are held by
   the wave until its event completes, so no ``Tensor.record_stream`` is
   needed.  The pipeline's own tensors (graph, index, embeddings) were made
-  on the current stream and live as long as the pipeline; the side stream
-  waits on the current stream (``side.wait_stream(cur)``) before it reads
-  them.  The kernels launch on the current stream, which is the side stream
+  on the current stream, and the side stream waits on the current stream
+  (``side.wait_stream(cur)``) before it reads them, so a wave sees every
+  fold queued before its launch.  They do not live as long as the
+  pipeline: ``RAGServeEngine.apply_mutations`` re-points the pipeline to a
+  new snapshot while a wave may still be queued on the old one, and the
+  caching allocator would hand the old tensors' memory to the next
+  allocation on the current stream (the next fold, a compaction, a decode
+  step) while the side stream still reads it.  So each launch holds every
+  tensor the pipeline's graph, index and embeddings hold
+  (:func:`_snapshot`) with the wave's handles, and lets go only once the
+  wave's event has completed (at collect, or in ``_abandoned``).  The
+  kernels launch on the current stream, which is the side stream
   inside the context (``kernels/bfs_frontier/kernel.py``,
   ``frontier_expand/kernel.py``, ``topk_sim/kernel.py``,
   ``ivf_scan/kernel.py``), and the one module-level scratch, ``topk_merge``'s
@@ -117,16 +126,28 @@ def device_error(exc: BaseException) -> bool:
     return (isinstance(accel, type) and isinstance(exc, accel)) or "CUDA error" in str(exc)
 
 
+def _snapshot(pipeline) -> tuple:
+    """Every tensor a retrieval on ``pipeline`` may read: the graph's, the
+    index's and its cached device lists (one level of tuples and lists
+    down), and the embeddings."""
+    out = [getattr(pipeline, "node_emb", None)]
+    for obj in (getattr(pipeline, "graph", None), getattr(pipeline, "index", None)):
+        for v in getattr(obj, "__dict__", {}).values():
+            out.extend(v if isinstance(v, (tuple, list)) else (v,))
+    return tuple(t for t in out if isinstance(t, torch.Tensor))
+
+
 class _Landed:
     """One retrieval field on its way to the host: ``host`` is the pinned
     buffer a side-stream copy fills (or, for a CPU pipeline, the result
     itself), ``event`` the event recorded after the wave's copies (None:
-    ready at once).  ``src`` holds the device result until the copy is done."""
+    ready at once).  ``src`` holds the device result, and ``keep`` the
+    pipeline snapshot the wave's kernels read, until the event completes."""
 
-    __slots__ = ("host", "event", "src")
+    __slots__ = ("host", "event", "src", "keep")
 
-    def __init__(self, host: torch.Tensor, event=None, src=None):
-        self.host, self.event, self.src = host, event, src
+    def __init__(self, host: torch.Tensor, event=None, src=None, keep=()):
+        self.host, self.event, self.src, self.keep = host, event, src, keep
 
     def is_ready(self) -> bool:
         return self.event is None or self.event.query()
@@ -138,11 +159,12 @@ class _Landed:
         return a.astype(dtype) if dtype is not None else a
 
 
-def _land(res, stream) -> tuple:
+def _land(res, stream, keep: tuple = ()) -> tuple:
     """The four fields a collect forces — (nodes, mask, dist, seeds) — as
     handles with ``is_ready()`` and ``__array__``.  On a CUDA stream: one
     pinned buffer each, filled by non-blocking copies queued on ``stream``
-    (the current stream here) and one event recorded after them."""
+    (the current stream here) and one event recorded after them; the
+    handles hold ``keep`` (the pipeline snapshot) as long as they live."""
     fields = (res.sub.nodes, res.sub.mask, res.sub.dist, res.seeds)
     if not isinstance(res.seeds, torch.Tensor):
         return fields  # a simulator's lazy host arrays
@@ -153,7 +175,7 @@ def _land(res, stream) -> tuple:
         b.copy_(a, non_blocking=True)
     event = torch.cuda.Event()
     event.record(stream)
-    return tuple(_Landed(b, event, a) for b, a in zip(bufs, fields))
+    return tuple(_Landed(b, event, a, keep) for b, a in zip(bufs, fields))
 
 
 @dataclasses.dataclass
@@ -305,7 +327,9 @@ class AdmissionPrefetcher:
                 if device_error(exc):
                     raise
                 return None, None, f"dispatch: {exc}"
-            return res, _land(res, stream), None
+            # taken after the dispatch: the index may cache device lists then
+            keep = _snapshot(self.pipeline) if stream is not None else ()
+            return res, _land(res, stream, keep), None
 
     # -- launch ---------------------------------------------------------------
     def launch(self, reqs: list, *, step: int = 0, tokens: int = 0) -> PrefetchWave:

@@ -28,8 +28,10 @@ prefetch, collects whichever request's retrieval is ready
 :class:`~repro_torch.serving.engine.ServeEngine` over a contiguous or paged
 KV arena, in one-token or self-speculative decode; with ``prefix_share`` a
 cache entry pins its prefilled prompt's blocks and a later identical prompt
-aliases them.  Online mutation (ROADMAP Queue 1 item 13) is not ported
-yet; asking for it raises.
+aliases them.  Over a pipeline built on a
+:class:`~repro_torch.core.mutation.MutableGraphStore`,
+:meth:`RAGServeEngine.apply_mutations` changes the corpus between steps and
+invalidates the cache entries whose region it touched.
 """
 from __future__ import annotations
 
@@ -48,13 +50,6 @@ from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.engine import Request, ServeEngine
 from repro_torch.serving.prefetch import AdmissionPrefetcher, device_error
 from repro_torch.serving.stats import flatten_stats
-
-# ServingConfig fields whose non-default values this port does not serve
-# yet, each with its ROADMAP Queue 1 item
-_NOT_PORTED = {
-    "mutation": (False, "13 (online mutation)"),
-    "compact_every": (0, "13 (online mutation)"),
-}
 
 
 @dataclasses.dataclass
@@ -141,12 +136,6 @@ class RAGServeEngine:
             raise ValueError("the pipeline needs a tokenizer and node_text")
         self.device = resolve_device(device)
         self.config = resolved = ServingConfig.resolve(config, **overrides)
-        for field, (default, item) in _NOT_PORTED.items():
-            if getattr(resolved, field) != default:
-                raise NotImplementedError(
-                    f"{field}={getattr(resolved, field)!r} is not ported yet: "
-                    f"ROADMAP Queue 1 item {item}"
-                )
         if pipeline.tokenizer.max_len >= resolved.cache_len:
             raise ValueError(
                 f"tokenizer.max_len={pipeline.tokenizer.max_len} must be < "
@@ -163,7 +152,8 @@ class RAGServeEngine:
         )
         self.cache = retrieval_cache if retrieval_cache is not None else RetrievalCache(
             capacity=resolved.cache_capacity, quant_eps=resolved.quant_eps,
-            policy=resolved.cache_policy, ttl=resolved.cache_ttl)
+            policy=resolved.cache_policy, ttl=resolved.cache_ttl,
+            region_bucket=resolved.region_bucket, mutation_flush=resolved.mutation_flush)
         if self.engine.prefix_share:
             # pins attach only to entries still resident, and pool pressure
             # releases this engine's pins before it truncates a live request
@@ -180,6 +170,7 @@ class RAGServeEngine:
         self.max_pending = resolved.max_pending  # 0 = unbounded
         self.shed_policy = resolved.shed_policy
         self.default_deadline_s = resolved.default_deadline_s
+        self.compact_every = resolved.compact_every  # 0 = manual compaction only
         self._now = now_fn
         # continuous admission pads retrieval to 1 row instead of `slots`
         # (rows are independent: same results); the prefetcher shares the
@@ -202,6 +193,8 @@ class RAGServeEngine:
         self.failed_count = 0
         self.degraded_count = 0
         self.stale_served = 0
+        self.mutation_batches = 0  # apply_mutations calls
+        self.mutation_invalidated = 0  # cache entries they dropped
 
     # -- counters -------------------------------------------------------------
     @property
@@ -497,6 +490,32 @@ class RAGServeEngine:
         done.extend(self.abort(reason=f"drain gave up after {max_steps} steps"))
         return done
 
+    # -- online mutation ------------------------------------------------------
+    def apply_mutations(self, batch):
+        """Apply a :class:`repro_torch.core.mutation.MutationBatch` to the
+        live graph and index between engine steps, then drop every cache
+        entry whose region the batch touched (releasing its KV pins);
+        compact every ``compact_every`` batches.  Returns the store's
+        ``MutationReport``.
+
+        Safe to interleave with :meth:`step`: the store builds *new* device
+        tensors and re-points the pipeline, a wave already dispatched keeps
+        (through the prefetcher) the tensors of its launch-time snapshot and
+        completes against them, and the cache's epoch put-gate refuses its
+        superseded results.  Nothing here waits on the device.  Call it
+        between steps, not from another thread.
+        """
+        store = getattr(self.pipeline, "mutation_store", None)
+        if store is None:
+            raise RuntimeError("apply_mutations needs a pipeline built on a "
+                               "MutableGraphStore (see repro_torch.core.mutation)")
+        report = store.apply(batch)
+        self.mutation_batches += 1
+        self.mutation_invalidated += self.cache.invalidate_regions(report.touched, report.epoch)
+        if self.compact_every and store.mutations_since_compact >= self.compact_every:
+            store.compact()
+        return report
+
     def health(self) -> dict:
         """Health and load snapshot for a fronting router: the fault
         counters are cumulative (the router scores their deltas), the load
@@ -520,8 +539,9 @@ class RAGServeEngine:
         }
 
     def stats_ns(self) -> dict:
-        """Namespaced stats, one sub-dict per serving layer."""
-        return {
+        """Namespaced stats, one sub-dict per serving layer (``cache``,
+        ``engine``, ``prefetch``, ``decode``, ``mutation``)."""
+        ns = {
             "cache": self.cache.stats(),
             "engine": {
                 "retrieval_batches": self.retrieval_batches,
@@ -538,6 +558,12 @@ class RAGServeEngine:
             "prefetch": self.prefetcher.stats(),
             "decode": self.engine.decode_stats(),
         }
+        store = getattr(self.pipeline, "mutation_store", None)
+        mut = dict(store.stats()) if store is not None else {}
+        mut["batches"] = self.mutation_batches
+        mut["invalidated"] = self.mutation_invalidated
+        ns["mutation"] = mut
+        return ns
 
     def stats(self) -> dict:
         return flatten_stats(self.stats_ns())

@@ -8,7 +8,7 @@ Every serving layer exposes its counters under one namespace of a nested
 * ``prefetch.*`` — :class:`repro_torch.serving.prefetch.AdmissionPrefetcher`
 * ``decode.*``   — :meth:`repro_torch.serving.engine.ServeEngine.decode_stats`
 * ``router.*``   — :class:`repro_torch.serving.router.ReplicaRouter`
-* ``mutation.*`` — the online-mutation tier (not ported yet)
+* ``mutation.*`` — the online-mutation tier (:mod:`repro_torch.core.mutation`)
 
 :func:`flatten_stats` derives the historical flat dict from the tree.  The
 namespaces that predate the schema (``LEGACY_FLAT``) flatten *unprefixed* —

@@ -19,6 +19,8 @@ bf16 before P·V and a last-bit difference in an fp32 score can round it the
 other way, and every output is rounded to bf16 once.  ``ell_spmm`` and
 ``ivf_scan`` bit for bit: their plain versions add in the kernels' order.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1178,3 +1180,132 @@ def test_concurrent_retrievals_on_two_streams_match_one_at_a_time(dev, index, mo
     for a, b in zip(got, want):
         for name in ("seeds", "nodes", "mask", "dist"):
             assert torch.equal(getattr(a, name), getattr(b, name)), (index, mode, name)
+
+
+# ------------------------------------------------------- online mutation ---
+def _mutated_store(dev, kind="brute", n=20_000):
+    """A store on ``dev`` after a batch that kills base slots, fills slack,
+    tombstones nodes and adds nodes (no compaction)."""
+    from repro_torch.core.mutation import MutableGraphStore, MutationBatch
+    from repro_torch.graph import generators
+
+    g = generators.citation_graph(n, avg_deg=8, seed=0)
+    store = MutableGraphStore.build(g, index_kind=kind, device=dev)
+    rng = np.random.default_rng(5)
+    u = rng.choice(n, 40, replace=False)
+    kills = [(int(a), int(g.neighbors(int(a))[0])) for a in u[:20] if g.neighbors(int(a)).size]
+    fills = [(int(u[20]), int(v)) for v in rng.choice(n, 16, replace=False)]
+    feat = rng.standard_normal((3, g.node_feat.shape[1])).astype(np.float32)
+    store.apply(MutationBatch(add_node_feat=feat, add_edges=np.array(fills + [(n, 0)]),
+                              del_edges=np.array(kills), del_nodes=u[30:], symmetric=False))
+    assert store.compactions == 0 and store.delta.h_kill.any() and store.delta.tomb.any()
+    return g, store
+
+
+def test_mutation_fold_on_the_card_matches_the_host_oracle(dev):
+    """The device fold (resident base, dirty-row uploads) equals
+    ``merged_host`` after each of several batches, and every fold returns
+    new tensors while the earlier snapshot keeps its values."""
+    from repro_torch.core.mutation import MutationBatch
+
+    g, store = _mutated_store(dev)
+    rng = np.random.default_rng(9)
+    prev = None
+    for _ in range(4):
+        m = store.graph
+        nbr_h, mask_h = store.delta.merged_host()
+        assert np.array_equal(m.nbr.cpu().numpy(), nbr_h)
+        assert np.array_equal(m.nbr_mask.cpu().numpy(), mask_h)
+        if prev is not None:
+            old, kept = prev
+            assert old.nbr.data_ptr() != m.nbr.data_ptr() and torch.equal(old.nbr, kept)
+        prev = (m, m.nbr.clone())
+        alive = np.flatnonzero(store.alive)
+        a, b = rng.choice(alive, 2, replace=False)
+        store.apply(MutationBatch(add_edges=np.array([[a, b]]),
+                                  del_edges=np.array([[int(b), int(g.neighbors(int(b))[0])]]),
+                                  del_nodes=np.array([int(rng.choice(alive))])))
+
+
+def test_ivf_scan_with_a_delete_mask_matches_plain(dev):
+    """An IVF store's candidates with the deleted rows masked out
+    (``valid[min(cand, N - 1)]``): the kernel equals both plain arms bit
+    for bit and returns no deleted id; ``MutableIVFIndex.search`` runs it."""
+    from repro_torch.core import indexing as ix
+    from repro_torch.core.mutation import MutationBatch
+    from repro_torch.kernels.ivf_scan import kernel, ops
+
+    g, store = _mutated_store(dev, kind="ivf")
+    gone = np.flatnonzero(store.alive)[:6]
+    qn = ix.l2_normalize(torch.from_numpy(store.h_feat[gone]).to(dev))
+    store.apply(MutationBatch(del_nodes=gone))
+    idx = store.index
+    lists, lmask = idx._device_lists()
+    cand, open_ = ix.ivf_candidates(idx.centroids, lists, lmask, qn, idx.nprobe)
+    cmask = open_ & idx.valid[cand.clamp(max=idx.emb.shape[0] - 1)]
+    assert (open_ & ~cmask).any()
+    for k in (3, 40):
+        s_k, i_k = ops.ivf_candidate_scan(qn, idx.emb, cand, cmask, k, use_kernel=True)
+        for tiled in (False, True):
+            s_p, i_p = ops.ivf_candidate_scan(qn, idx.emb, cand, cmask, k, tiled=tiled,
+                                              use_kernel=False)
+            assert torch.equal(s_k, s_p) and torch.equal(i_k, i_p), (k, tiled)
+        assert not np.isin(i_k.cpu().numpy(), gone).any()
+    before = kernel.launches.count
+    _, ids = idx.search(store.h_feat[gone], 5)
+    assert kernel.launches.count == before + 1 and not np.isin(ids.cpu().numpy(), gone).any()
+
+
+def test_prefetched_wave_keeps_its_snapshot_across_a_mutation(dev):
+    """A prefetched wave (dense mode) queued on the side stream behind
+    ``torch.cuda._sleep``; then a batch deleting its queried nodes, a
+    compaction and ``torch.full`` allocations of the old graph's size on
+    the current stream.  The wave holds its launch-time snapshot: its
+    nodes equal that snapshot's retrieval on the CPU, no allocation got the
+    old graph's memory, and the cache refuses the superseded results.
+    Nothing calls ``torch.cuda.synchronize``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mutation import MutationBatch
+    from repro_torch.core.pipeline import PipelineConfig, RGLPipeline
+    from repro_torch.core.tokenization import GraphTokenizer, Vocab
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.serving.rag_engine import RAGRequest, RAGServeEngine
+
+    g, store = _mutated_store(dev)
+    tok = GraphTokenizer(Vocab.build(g.node_text), max_len=48, node_budget=6)
+    cfg = dataclasses.replace(get_config("starcoder2-3b").reduced_cfg, vocab=tok.vocab.size)
+    pipe = store.make_pipeline(tokenizer=tok, config=PipelineConfig(
+        k_seeds=3, max_nodes=16, filter_budget=6, retrieval_mode="dense"))
+    params = tm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    eng = RAGServeEngine(pipe, params, cfg, slots=4, cache_len=64, prefetch=True, device=dev)
+    qs = np.flatnonzero(store.alive)[[3, 50, 700, 4000]]
+    qe = store.h_feat[qs]
+    snap = RGLPipeline(graph=dataclasses.replace(pipe.graph, nbr=pipe.graph.nbr.cpu(),
+                                                 nbr_mask=pipe.graph.nbr_mask.cpu()),
+                       index=dataclasses.replace(pipe.index, emb=pipe.index.emb.cpu(),
+                                                 valid=pipe.index.valid.cpu()),
+                       node_emb=pipe.node_emb.cpu(), config=pipe.config, device="cpu")
+    want = snap.retrieve_many(qe, batch_size=4)
+    old_ptr, old_shape = pipe.graph.nbr.data_ptr(), tuple(pipe.graph.nbr.shape)
+    eng.prefetcher.launch([RAGRequest(uid=9, query_emb=qe[0], query_text="warm")])
+    eng.prefetcher.collect()  # builds the kernels, warms the side stream
+    with torch.cuda.stream(eng.prefetcher.side_stream()):
+        torch.cuda._sleep(SLEEP_CYCLES)
+    for u in range(4):
+        eng.submit(RAGRequest(uid=u, query_emb=qe[u], query_text=f"q {u}", max_new_tokens=2))
+    sync = torch.cuda.synchronize
+    torch.cuda.synchronize = None  # a call would raise
+    try:
+        eng._launch_pending()
+        eng.apply_mutations(MutationBatch(del_nodes=qs))
+        junk = [torch.full(old_shape, -7, dtype=torch.int32, device=dev) for _ in range(3)]
+        assert not eng.prefetcher._waves[0].arrs[0].event.query(), "the wave already ran"
+        store.compact()
+        junk += [torch.full(old_shape, -7, dtype=torch.int32, device=dev) for _ in range(3)]
+        done = {r.uid: r for r in eng.run_to_completion()}
+    finally:
+        torch.cuda.synchronize = sync
+    assert all(j.data_ptr() != old_ptr for j in junk)
+    for u in range(4):
+        assert np.array_equal(done[u].retrieved_nodes, want.nodes[u][want.mask[u]].numpy()), u
+    assert eng.cache.stats()["stale_rejects"] >= 1

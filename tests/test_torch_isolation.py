@@ -36,7 +36,8 @@ assert not bad, bad
 @pytest.mark.parametrize("module", ["core.naive", "core.rouge", "core.generation",
                                     "configs.rgl_paper", "serving.drafter",
                                     "serving.engine", "serving.rag_engine",
-                                    "serving.simulate", "serving.router"])
+                                    "serving.simulate", "serving.router", "graph.delta",
+                                    "core.mutation"])
 def test_module_alone_imports_neither_jax_nor_the_reference(module):
     """Each host-copied module (and the engines that use the drafter),
     imported on its own in a fresh interpreter, loads no JAX and nothing of
@@ -60,8 +61,12 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 
 def _entry_points():
+    import numpy as np
+
     from repro_torch.core.indexing import BruteIndex, IVFIndex
+    from repro_torch.core.mutation import MutableGraphStore
     from repro_torch.core.sharding import ShardedIndex
+    from repro_torch.graph.delta import DeltaGraph
     from repro_torch.core.pipeline import RGLPipeline
     from repro_torch.graph import generators
     from repro_torch.graph.ell import csr_to_ell
@@ -88,13 +93,15 @@ def _entry_points():
         "paged ServeEngine": lambda: ServeEngine(params, cfg, slots=1, cache_len=16,
                                                  paged_kv=True, prefix_share=True),
         "launch.train": lambda: train.main(["--arch", "starcoder2-3b", "--steps", "1"]),
+        "MutableGraphStore.build": lambda: MutableGraphStore.build(g),
+        "DeltaGraph": lambda: DeltaGraph(np.zeros((2, 1), np.int32), np.zeros((2, 1), bool), 2, 4),
     }
 
 
 @pytest.mark.parametrize("name", ["init_params", "init_cache", "init_paged_cache", "csr_to_ell",
                                   "BruteIndex.build", "IVFIndex.build", "ShardedIndex.build",
                                   "RGLPipeline", "ServeEngine", "paged ServeEngine",
-                                  "launch.train"])
+                                  "launch.train", "MutableGraphStore.build", "DeltaGraph"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour of a machine without CUDA")
@@ -123,6 +130,8 @@ def test_rag_engine_and_launcher_default_to_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "starcoder2-3b", "--rag", "--nodes", "50", "--prefetch",
                     "--replicas", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "starcoder2-3b", "--rag", "--nodes", "50", "--mutate-rate", "0.1"])
 
 
 def test_chip_smoke_refuses_to_run_without_a_card_or_the_repo(tmp_path):

@@ -465,7 +465,9 @@ def test_launcher_fleet_and_fault_flags(capsys, monkeypatch):
 
 def test_launcher_single_engine_fault_lines_and_item_13_flags(capsys):
     """One engine with faults and prefetch prints the fault-tolerance and
-    prefetch lines; the online-mutation flags raise with their item."""
+    prefetch lines; the online-mutation flags (item 13, once stubs) serve:
+    ``--mutate-rate`` prints the mutation line, ``--compact-every`` alone
+    serves a frozen corpus."""
     from repro_torch.launch import serve
 
     common = ["--arch", "starcoder2-3b", "--rag", "--nodes", "300", "--device", "cpu"]
@@ -476,6 +478,9 @@ def test_launcher_single_engine_fault_lines_and_item_13_flags(capsys):
     s = out["stats"]
     assert s["prefetch"] and s["retries"] > 0 and s["shed"] == 0
     assert all(r.deadline_at is not None for r in out["done"])
-    for extra in (["--mutate-rate", "0.2"], ["--compact-every", "3"]):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            serve.main(common + extra)
+    out = serve.main(common + ["--mutate-rate", "0.2"])
+    assert "  mutation: " in capsys.readouterr().out
+    assert out["stats"]["mutation_batches"] > 0 and out["engine"].pipeline.mutation_store
+    out = serve.main(common + ["--compact-every", "3"])
+    assert "mutation:" not in capsys.readouterr().out
+    assert out["engine"].compact_every == 3 and out["engine"].pipeline.mutation_store is None

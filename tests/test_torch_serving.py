@@ -170,9 +170,18 @@ def test_abort_and_drain(stack):
     (dict(compact_every=3), "item 13"),
 ])
 def test_unported_serving_modes_raise(stack, kw, item):
+    """The online-mutation modes (Queue 1 ``item``) raised here until they
+    were ported; now the engine takes them, and over a frozen-corpus
+    pipeline only ``apply_mutations`` raises, as the reference's does."""
+    from repro_torch.core.mutation import MutationBatch
+
     _, _, (pipe, cfg, params) = stack
-    with pytest.raises(NotImplementedError, match=item):
-        RAGServeEngine(pipe, params, cfg, slots=SLOTS, cache_len=CACHE_LEN, device="cpu", **kw)
+    eng = RAGServeEngine(pipe, params, cfg, slots=SLOTS, cache_len=CACHE_LEN, device="cpu", **kw)
+    for field, value in kw.items():
+        assert getattr(eng.config, field) == value
+    assert eng.compact_every == kw.get("compact_every", 0)
+    with pytest.raises(RuntimeError, match="MutableGraphStore"):
+        eng.apply_mutations(MutationBatch(add_edges=np.array([[0, 1]])))
 
 
 @pytest.mark.parametrize("paged", [False, True])
