@@ -49,6 +49,18 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    profiled; then the reduced fp32 gate: spec tokens equal one-token tokens
    on the card exactly, and the card equals the CPU (contiguous, paged +
    share, paged + share + int8 under continuous admission);
+5d. (after the prefetch, fault, router and mutation phases) Granite-MoE:
+   Granite-3.0-1B-A400M's ``model_cfg`` at full width and depth (bf16,
+   random weights from a seed, the tokenizer's vocabulary) serves the same
+   mix over the same graph and pipeline contiguous, paged + prefix sharing
+   and speculative (``draft_window`` 4), the retrieval launches asserted
+   as above; paged and spec tokens are reported as agreement with the
+   contiguous serve, each divergence a bf16 near-tie or after a verify
+   window that dropped one of its slot's pairs; each serve's decode
+   profiled and its MoE device time split (router, grouped products,
+   dispatch + SwiGLU + combine) beside the weight bound; the first prefill
+   wave's dropped pairs; ``RGLPipeline.run`` ending in the LM generator on
+   one wave; token mode (``_serve_tokens``) at the full vocabulary;
 6. ell_spmm: the ``ell_aggregate`` op driven at the regime of the TPU
    kernel it replaces (Q = 64, M = 1024, K = 32 and Q = 32, M = 256, K = 16,
    D = 128; its launches counted), and the kernel against its plain version
@@ -82,7 +94,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    (2 * L * n_micro forwards, L * n_micro of each backward kernel); then a
    1024-token prefill through the forward kernel against the plain
    attention, one 2-layer full-width step with the kernels against the
-   plain version, and three reduced fp32 steps on the card against the CPU.
+   plain version, and three reduced fp32 steps on the card against the CPU;
+10. Granite-MoE again: the three flash kernels at its shape (16/8 heads,
+   dh 64, no window) as in 8, two training steps as in 9 (96 forward and
+   48 of each backward launch a step), a token-mode serve of DeepSeek-7B
+   at full width and depth (4 requests x 8 tokens), and the MoE gate:
+   Granite's reduced fp32 config on the card against the CPU (tokens of
+   contiguous, paged + share and spec serves, the router's kept pairs,
+   three training losses).
 
 The second-to-last line is ``{"kernels": [...]}`` (one record per kernel);
 the last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -90,6 +109,7 @@ the last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -183,6 +203,14 @@ def bound(n_bytes: float, *work: tuple[float, float]) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = sum(n / rate for n, rate in work)
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def to_device(params: dict, device) -> dict:
+    """A copy of a parameter tree (nested dicts, a MoE config's ``moe``
+    included) on ``device``."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.to(device), params)
 
 
 # kernel-name fragments of the port's hand-written kernels in a trace (the
@@ -910,9 +938,7 @@ def cross_device_check(reduced_cfg) -> int:
         kw = dict(nodes=3000, requests=8, retrieval=retrieval, index=index)
         card = _serve_rag(reduced_cfg, serve_args(**kw))
         params = card["params"]
-        host = {"embed": params["embed"].cpu(), "ln_f": params["ln_f"].cpu(),
-                "head": params["head"].cpu(),
-                "layers": {k: v.cpu() for k, v in params["layers"].items()}}
+        host = to_device(params, "cpu")
         cpu = _serve_rag(reduced_cfg, serve_args(device="cpu", **kw), params=host)
         runs = [{r.uid: r for r in out["done"]} for out in (card, cpu)]
         for uid, a in runs[0].items():
@@ -965,8 +991,7 @@ def paged_cross_device_check(reduced_cfg) -> dict:
     for name, (cfg, kw) in cases.items():
         kw = dict(nodes=3000, paged_kv=True, cache_len=112, **kw)
         card = _serve_rag(cfg, serve_args(**kw), q_ids=q_ids)
-        host = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v.cpu())
-                for k, v in card["params"].items()}
+        host = to_device(card["params"], "cpu")
         cpu = _serve_rag(cfg, serve_args(device="cpu", **kw), q_ids=q_ids, params=host)
         runs = [{r.uid: r for r in out["done"]} for out in (card, cpu)]
         assert sorted(runs[0]) == sorted(runs[1]) == list(range(12)), name
@@ -996,13 +1021,15 @@ def paged_cross_device_check(reduced_cfg) -> dict:
 NEAR_TIE = 0.25
 
 
-def one_token_margins(cfg, params, q_ids, wanted: dict, one_token: dict, **kw) -> dict:
+def one_token_margins(cfg, params, q_ids, wanted: dict, one_token: dict, stack=None,
+                      **kw) -> dict:
     """Re-serve the one-token run of an arena (same batches, so the same
     GEMM kernels as the serve it repeats) and read its logits at each
     diverged uid's first divergent step: ``wanted`` maps uid -> (step, spec
     token).  Returns per uid the step, the one-token serve's top-2 logit
     gap there and how far below its top logit the spec token was, and
-    whether the re-serve reproduced the one-token tokens."""
+    whether the re-serve reproduced the one-token tokens.  ``stack`` reuses
+    a built graph, pipeline and weights (``params`` is then unused)."""
     from repro_torch.launch.serve import _serve_rag
     from repro_torch.models.transformer import model as tm
     from repro_torch.serving.engine import ServeEngine
@@ -1034,7 +1061,8 @@ def one_token_margins(cfg, params, q_ids, wanted: dict, one_token: dict, **kw) -
         setattr(tm, name, keep_logits(name))
     ServeEngine._step_one = recording_step_one
     try:
-        out = _serve_rag(cfg, serve_args(spec_decode=False, **kw), q_ids=q_ids, params=params)
+        out = _serve_rag(cfg, serve_args(spec_decode=False, **kw), q_ids=q_ids, params=params,
+                         stack=stack)
     finally:
         for name, fn in decode_fns.items():
             setattr(tm, name, fn)
@@ -1141,8 +1169,7 @@ def spec_cross_device_check(reduced_cfg) -> dict:
         card = _serve_rag(cfg, serve_args(**spec, **kw), q_ids=q_ids)
         one = _serve_rag(cfg, serve_args(spec_decode=False, **kw), q_ids=q_ids,
                          params=card["params"])
-        host = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v.cpu())
-                for k, v in card["params"].items()}
+        host = to_device(card["params"], "cpu")
         cpu = _serve_rag(cfg, serve_args(device="cpu", **spec, **kw), q_ids=q_ids, params=host)
         runs = [{r.uid: r for r in out["done"]} for out in (card, one, cpu)]
         assert sorted(runs[0]) == sorted(runs[1]) == sorted(runs[2]) == list(range(12)), name
@@ -1504,8 +1531,7 @@ def fleet_cross_device_check(reduced_cfg) -> dict:
         card = _serve_rag(reduced_cfg, serve_args(**kw), q_ids=q_ids, params=params,
                           **virtual_clock())
         params = card["params"]
-        host = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v.cpu())
-                for k, v in params.items()}
+        host = to_device(params, "cpu")
         cpu = _serve_rag(reduced_cfg, serve_args(device="cpu", **kw), q_ids=q_ids, params=host,
                          **virtual_clock())
         runs = [{r.uid: r for r in out["done"]} for out in (card, cpu)]
@@ -1967,8 +1993,7 @@ def mutation_cross_device_check(reduced_cfg) -> dict:
         card = _serve_rag(reduced_cfg, serve_args(**kw), q_ids=q_ids, params=params,
                           **virtual_clock())
         params = card["params"]
-        host = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v.cpu())
-                for k, v in params.items()}
+        host = to_device(params, "cpu")
         cpu = _serve_rag(reduced_cfg, serve_args(device="cpu", **kw), q_ids=q_ids, params=host,
                          **virtual_clock())
         runs = [{r.uid: r for r in out["done"]} for out in (card, cpu)]
@@ -2071,6 +2096,461 @@ def profile_decode(engine, steps: int = 5) -> dict:
             "device_idle_share": 1 - busy / wall, "kernels_per_step": n_kernels / steps,
             "top_kernels_ms_per_step": dict(top)}
 
+
+
+# ------------------------------------------------------------ Granite-MoE ----
+GRANITE = "granite-moe-1b-a400m"
+MOE_RANGES = ("moe_ffn", "moe_route", "moe_products")
+
+
+@contextlib.contextmanager
+def moe_annotated():
+    """``moe_ffn``, the router and the grouped products wrapped in
+    ``record_function`` ranges for one profiled window (the package carries
+    no annotation of its own)."""
+    from torch.profiler import record_function
+
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.models.transformer import moe
+
+    def wrap(name, fn):
+        def inner(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return inner
+
+    saved = (tm.moe_ffn, moe.route, moe._bmm_f32)
+    tm.moe_ffn = wrap("moe_ffn", saved[0])
+    moe.route = wrap("moe_route", saved[1])
+    moe._bmm_f32 = wrap("moe_products", saved[2])
+    try:
+        yield
+    finally:
+        tm.moe_ffn, moe.route, moe._bmm_f32 = saved
+
+
+def range_device(prof, name: str, per: int) -> tuple[float, float]:
+    """(device ms, kernels) per ``per`` of the kernels launched inside the
+    CPU ranges called ``name`` (their own and their children's)."""
+    def kernels(ev):
+        return len(ev.kernels) + sum(kernels(c) for c in ev.cpu_children)
+
+    evs = [e for e in prof.events()
+           if e.name == name and e.device_type == torch.autograd.DeviceType.CPU]
+    return (sum(e.device_time_total for e in evs) / 1e3 / per,
+            sum(kernels(e) for e in evs) / per)
+
+
+def moe_decode_split(engine, steps: int = 5, traces: int = 3) -> dict:
+    """The MoE FFN's device ms a decode step: the router (fp32 logits,
+    softmax, top-k, ranks, aux), the grouped products (three bmms) and the
+    rest (dispatch scatter, SwiGLU, combine), from a profiled window of
+    ``steps`` steps with the MoE functions annotated; its kernels a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.default_rng(2)
+    for u in range(engine.slots):  # 30 + 70 tokens: the windows' steps fit any arena here
+        engine.submit(Request(uid=2000 + u, prompt_ids=rng.integers(6, engine.cfg.vocab, 30)
+                              .astype(np.int32), max_new_tokens=70))
+    engine.step()
+    for _ in range(traces):
+        torch.cuda.synchronize()
+        with moe_annotated(), profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                engine.step()
+            torch.cuda.synchronize()
+        (ffn, n_ffn), (route, _), (prods, _) = (range_device(prof, n, steps) for n in MOE_RANGES)
+        if ffn > 0:
+            break
+    engine.abort(reason="profile window over")
+    if ffn <= 0:
+        return {"moe_device_ms_per_step": "not measured"}
+    return {"moe_device_ms_per_step": ffn, "router_ms": route, "grouped_products_ms": prods,
+            "dispatch_swiglu_combine_ms": ffn - route - prods, "moe_kernels_per_step": n_ffn}
+
+
+def weight_bounds(cfg, params) -> dict:
+    """Bytes a decode step must read at 4 slots x top-8 (cap 8: every
+    expert is fed, so every weight is read; the embedding only for 4 rows)
+    and the least time they take at the card's memory rate."""
+    from repro_torch.tree import tree_leaves
+
+    nbytes = lambda t: t.numel() * t.element_size()  # noqa: E731
+    moe_bytes = sum(nbytes(t) for t in tree_leaves(params["layers"]["moe"]))
+    step_bytes = (sum(nbytes(t) for t in tree_leaves(params)) - nbytes(params["embed"])
+                  + 4 * cfg.d_model * params["embed"].element_size())
+    return {"moe_weight_bytes": moe_bytes, "moe_bound_ms": 1e3 * moe_bytes / HBM_BYTES_PER_S,
+            "step_weight_bytes": step_bytes,
+            "step_bound_ms": 1e3 * step_bytes / HBM_BYTES_PER_S}
+
+
+@contextlib.contextmanager
+def first_prefill_routes(n_layers: int):
+    """Records the router's ``keep`` masks of the first prefill call (one
+    a layer) and that call's ``true_len``, without a host sync."""
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.models.transformer import moe
+
+    rec: dict = {"keep": [], "true_len": None}
+    route, prefill = moe.route, tm.prefill
+
+    def recording_prefill(params, tokens, true_len, *a, **kw):
+        if rec["true_len"] is None:
+            rec["true_len"] = true_len
+            rec["active"] = True
+        try:
+            return prefill(params, tokens, true_len, *a, **kw)
+        finally:
+            rec["active"] = False
+
+    def recording_route(params, x, cfg):
+        r = route(params, x, cfg)
+        if rec.get("active") and len(rec["keep"]) < n_layers:
+            rec["keep"].append(r["keep"])
+        return r
+
+    moe.route, tm.prefill = recording_route, recording_prefill
+    try:
+        yield rec
+    finally:
+        moe.route, tm.prefill = route, prefill
+
+
+def drop_shares(rec: dict, moe_cfg) -> dict:
+    """Shares of dropped (token, slot) pairs over the first prefill's
+    layers: of every row (padding included) and of the prompts' rows."""
+    from repro_torch.models.transformer import moe
+
+    keep = torch.stack(rec["keep"]).cpu()  # (L, B*S, k)
+    tl = rec["true_len"].cpu()
+    b = tl.shape[0]
+    s = keep.shape[1] // b
+    real = (torch.arange(s)[None, :] < tl[:, None]).reshape(-1)
+    dropped = ~keep
+    return {"rows": b * s, "prompt_rows": int(real.sum()), "cap": moe.capacity(moe_cfg, b * s),
+            "dropped_share_all_pairs": float(dropped.float().mean()),
+            "dropped_share_prompt_pairs": float(dropped[:, real].float().mean()),
+            "dropped_pairs_by_layer": dropped.sum(dim=(1, 2)).tolist()}
+
+
+@contextlib.contextmanager
+def prefill_batches():
+    """Records, per uid, the prefill batch that gave it its first token and
+    KV rows: (bucket, the batch's prompts in row order).  The MoE's capacity
+    is set by every row of the batch, so a uid prefilled in batches of other
+    contents may be given other drops.  A uid whose prompt was adopted
+    (prefix sharing) takes its donor's batch, after the serve."""
+    from repro_torch.serving import engine as engine_mod
+
+    log: dict = {}
+    prefill_fresh = engine_mod.ServeEngine._prefill_fresh
+
+    def recording(self, reqs, fresh_pairs, first_by_slot):
+        prompts = [np.asarray(reqs[j].prompt_ids, np.int32) for j, _ in fresh_pairs]
+        key = (engine_mod._bucket_len(max(len(p) for p in prompts), self.cache_len),
+               tuple(p.tobytes() for p in prompts))
+        for j, _ in fresh_pairs:
+            log[reqs[j].uid] = key
+        return prefill_fresh(self, reqs, fresh_pairs, first_by_slot)
+
+    engine_mod.ServeEngine._prefill_fresh = recording
+    try:
+        yield log
+    finally:
+        engine_mod.ServeEngine._prefill_fresh = prefill_fresh
+
+
+def adopted_batches(log: dict, done) -> dict:
+    """``log`` with each adopted uid given the batch of the uid whose
+    prompt it shares."""
+    by_prompt = {np.asarray(r.prompt_ids, np.int32).tobytes(): log[r.uid]
+                 for r in done if r.uid in log}
+    return {r.uid: log.get(r.uid, by_prompt.get(np.asarray(r.prompt_ids, np.int32).tobytes()))
+            for r in done}
+
+
+def spec_drop_log(stack, q_ids, **kw) -> tuple[dict, dict]:
+    """Re-serve a speculative run with the router recorded: per uid, each
+    spec step's (tokens before, tokens after, whether any pair of that
+    slot's verify rows was dropped).  Returns (log, the re-serve's tokens)."""
+    from repro_torch.launch.serve import _serve_rag
+    from repro_torch.models.transformer import moe
+    from repro_torch.serving.engine import ServeEngine
+
+    calls: list = []
+    log: dict = {}
+    route, step_spec = moe.route, ServeEngine._step_spec
+
+    def recording_route(params, x, cfg):
+        r = route(params, x, cfg)
+        calls.append(r["keep"])
+        return r
+
+    def recording_step(self):
+        before = [(i, r, len(r.out_tokens)) for i, r in enumerate(self.active)
+                  if r is not None and self.live[i]]
+        calls.clear()
+        finished = step_spec(self)
+        windows = [~c.reshape(self.slots, -1).all(dim=1) for c in calls
+                   if c.shape[0] == self.slots * self.draft_window]
+        assert windows, "a spec step ran no verify window through the MoE"
+        lost = torch.stack(windows).any(dim=0).cpu()
+        for i, req, n in before:
+            log.setdefault(req.uid, []).append((n, len(req.out_tokens), bool(lost[i])))
+        return finished
+
+    moe.route, ServeEngine._step_spec = recording_route, recording_step
+    try:
+        out = _serve_rag(stack["cfg"], serve_args(**kw), q_ids=q_ids, stack=stack)
+    finally:
+        moe.route, ServeEngine._step_spec = route, step_spec
+    return log, {r.uid: r.out_tokens for r in out["done"]}
+
+
+def granite_run(card: str, name: str, stack, q_ids, contiguous: tuple | None = None,
+                **kw) -> tuple[dict, tuple]:
+    """One counted full-width Granite serve of the main path's mix: the
+    retrieval kernels' launches asserted as on the StarCoder2 path, the
+    allocator checked (paged), the decode profiled and the MoE's device time
+    split.  Against ``contiguous`` (the one-token contiguous serve's tokens
+    and prefill batches) the agreement is reported, and each uid that
+    differs must be explained, at its first divergent position, as one of:
+    ``prefill_batch`` (its prefill batch held other prompts, so the MoE's
+    capacity differed), ``verify_drop`` (a verify window dropped one of its
+    slot's pairs at or before it: a window's W rows a slot set the capacity,
+    where a 4-row decode step drops nothing; ``spec_drop_log``), or
+    ``near_tie`` (a bf16 near-tie in the contiguous serve's logits,
+    ``one_token_margins``).  MoE speculation and prefix sharing are not
+    one-token contiguous decode's function, in the reference too.  Returns
+    (record, (tokens, prefill batches))."""
+    args = serve_args(**kw)
+    cfg, params = stack["cfg"], stack["params"]
+    with first_prefill_routes(cfg.n_layers) as routes, prefill_batches() as batches:
+        out, launches, overflow_rows = counted_serve(cfg, args, q_ids, stack=stack)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_serve_launches(out, launches, overflow_rows, "brute")
+    done, s, eng = out["done"], out["stats"], out["engine"].engine
+    assert len(done) == len(q_ids) and all(r.done and not r.failed for r in done), name
+    for r in done:
+        assert len(r.out_tokens) == args.max_new and all(0 <= t < cfg.vocab for t in r.out_tokens)
+    if eng.paged_kv:
+        check_allocator(eng)
+    toks = {r.uid: r.out_tokens for r in done}
+    batches = adopted_batches(batches, done)
+    rec = {"granite_run": name, "card": card, "paged_kv": s["paged_kv"],
+           "prefix_share": s["prefix_share"], "spec_decode": s["spec_decode"],
+           "cache_len": out["cache_len"], "max_new": args.max_new,
+           "tok_per_s": out["tok_per_s"], "serve_s": out["serve_s"],
+           "decode_ms_per_step": out["decode_ms_per_step"], "decode_steps": s["decode_steps"],
+           "tokens_per_step": s["tokens_per_step"], "draft_accept_rate": s["draft_accept_rate"],
+           "prefill_batches": s["prefill_batches"], "prefill_rows": s["prefill_rows"],
+           "retrieval_batches": s["retrieval_batches"], "cache_hits": s["hits"],
+           "launches": launches, "peak_mem_gb": peak,
+           "first_prefill_drops": drop_shares(routes, cfg.moe)}
+    if eng.paged_kv:
+        rec["kv_shared_admits"] = s["kv_shared_admits"]
+    if contiguous is not None:
+        base, base_batches = contiguous
+        rec["agreement_with_contiguous"] = token_agreement(base, toks)
+        diverged = sorted(u for u in base if base[u] != toks[u])
+        if diverged:
+            first = {u: next(i for i, (a, b) in enumerate(zip(base[u], toks[u])) if a != b)
+                     for u in diverged}
+            decode = {u: (k, toks[u][k]) for u, k in first.items() if k > 0}
+            margins = one_token_margins(cfg, params, q_ids, decode, base, stack=stack)
+            assert margins["reproduces_one_token"], (name, margins)
+            drops: dict = {}
+            if s["spec_decode"]:
+                log, again = spec_drop_log(stack, q_ids, **kw)
+                assert again == toks, (name, "the recorded re-serve changed the tokens")
+                drops = {u: any(lost for n0, _, lost in log[u] if n0 <= first[u])
+                         for u in diverged}
+            rec["divergence"] = {}
+            for u in diverged:
+                m = margins["uids"].get(u, {})
+                why = [reason for reason, ok in (
+                    ("prefill_batch", batches[u] != base_batches[u]),
+                    ("verify_drop", drops.get(u, False)),
+                    ("near_tie", m.get("spec_token_below_top", NEAR_TIE + 1) <= NEAR_TIE)) if ok]
+                rec["divergence"][u] = {"first_position": first[u], **m, "explained_by": why}
+    rec["decode_profile"] = profile_decode(eng)
+    rec["moe_split"] = moe_decode_split(eng)
+    print(json.dumps(rec), flush=True)
+    unexplained = {u: d for u, d in rec.get("divergence", {}).items() if not d["explained_by"]}
+    assert not unexplained, (name, unexplained)
+    return rec, (toks, batches)
+
+
+def lm_generator_run(stack, q_ids, engine_tokens: dict, max_new: int = 12) -> dict:
+    """Stage 5 through ``RGLPipeline.run`` ending in the LM generator
+    (``make_lm_generator``, greedy) on the first Q = 4 wave of the mix, with
+    the serve's weights: its strings equal those of ``generate_tokens`` on
+    the pipeline's prompts, whose tokens are compared with the engine's
+    (the engine prefills a padded bucket of another length, so the MoE's
+    capacity, and with it the drops, may differ)."""
+    from repro_torch.core.generation import make_lm_generator
+    from repro_torch.models.transformer import generate
+
+    g, pipe, cfg, params = stack["g"], stack["pipe"], stack["cfg"], stack["params"]
+    cache_len = pipe.tokenizer.max_len + max_new + 1
+    gen = make_lm_generator(params, cfg, pipe.tokenizer.vocab, cache_len=cache_len)
+    assert type(gen) is generate.LMGenerator
+    qi = np.asarray(q_ids[:4])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = dataclasses.replace(pipe, generator=gen).run(
+        g.node_feat[qi], [" ".join(g.node_text[i].split()[:4]) for i in qi],
+        max_new_tokens=max_new)
+    wall = time.perf_counter() - t0
+    ids, mask = np.asarray(out["prompt_ids"]), np.asarray(out["prompt_mask"])
+    toks = generate.generate_tokens(
+        params, torch.from_numpy(ids).to(DEV), torch.from_numpy(mask.sum(1).astype(np.int32))
+        .to(DEV), cfg, max_new=max_new, cache_len=cache_len).cpu().tolist()
+    words = [" ".join(w for w in (gen.id_to_word.get(t, "") for t in row) if w) for row in toks]
+    assert out["outputs"] == words, (out["outputs"], words)
+    ours = {u: toks[u] for u in range(4)}
+    return {"queries": 4, "max_new": max_new, "run_wall_s": wall,
+            "agreement_with_engine": token_agreement({u: engine_tokens[u] for u in range(4)}, ours),
+            "outputs_nonempty": sum(bool(o) for o in out["outputs"])}
+
+
+def token_mode_run(card: str, arch: str, requests: int, max_new: int) -> dict:
+    """``launch.serve``'s token mode (``_serve_tokens``) with the arch's
+    full-width, full-depth config in bf16, seeded random weights and its own
+    vocabulary: random prompts of 4-15 tokens, ``cache_len`` 128."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import _serve_tokens
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(arch).model_cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = argparse.Namespace(requests=requests, slots=4, max_new=max_new, device=DEV)
+    out = _serve_tokens(cfg, args)
+    done = out["done"]
+    assert len(done) == requests and all(r.done and len(r.out_tokens) == max_new for r in done)
+    assert all(0 <= t < cfg.vocab for r in done for t in r.out_tokens)
+    rec = {"token_mode": arch, "card": card, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "params": sum(t.numel() for t in tree_leaves(out["params"])),
+           "requests": requests, "max_new": max_new, "cache_len": out["cache_len"],
+           "setup_s": out["setup_s"], "serve_s": out["serve_s"], "tok_per_s": out["tok_per_s"],
+           "decode_ms_per_step": out["decode_ms_per_step"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "decode_profile": profile_decode(out["engine"])}
+    print(json.dumps(rec), flush=True)
+    del out
+    return rec
+
+
+def granite_phase(card: str, stack) -> dict:
+    """Granite-3.0-1B-A400M at full width and depth (bf16, random weights
+    from seed 0, the tokenizer's vocabulary) over the main path's graph and
+    pipeline: the mix served contiguous, paged + prefix sharing, and
+    speculative at ``draft_window`` 4 (tokens held to the contiguous serve's
+    as ``granite_run`` says); the LM generator on one wave; token mode at
+    the full vocabulary (49,155).  One summary line."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.models.transformer import moe
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(GRANITE).model_cfg, vocab=stack["cfg"].vocab)
+    params = tm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    gstack = {**stack, "cfg": cfg, "params": params}
+    distinct = np.random.default_rng(0).choice(N_NODES, 8, replace=False)
+    q_ids = np.concatenate([distinct, distinct[:4]])
+    # one arena length for all three, so their prefill buckets (which set the
+    # MoE's capacity) match: 128 takes 16-token blocks, and 64 blocks hold
+    # the 4 live slots beside the 4 pinned prompts
+    contiguous, toks = granite_run(card, "granite_contiguous", gstack, q_ids, cache_len=128)
+    paged, _ = granite_run(card, "granite_paged_share", gstack, q_ids, toks, cache_len=128,
+                           paged_kv=True, prefix_share=True, pool_blocks=64)
+    assert paged["kv_shared_admits"] == 4, paged
+    spec, _ = granite_run(card, "granite_spec", gstack, q_ids, toks, cache_len=128,
+                          spec_decode=True, draft_window=4)
+    lm = lm_generator_run(gstack, q_ids, toks[0])
+    bounds = weight_bounds(cfg, params)
+    del gstack, params
+    tokens = token_mode_run(card, GRANITE, requests=8, max_new=12)
+    runs = (contiguous, paged, spec)
+    summary = {
+        "card": card, "config": GRANITE, "n_layers": cfg.n_layers, "vocab": cfg.vocab,
+        "bmm_out_dtype": moe.bmm_out_dtype_available(), **bounds,
+        "tok_per_s": {r["granite_run"]: r["tok_per_s"] for r in runs},
+        "decode_ms_per_step": {r["granite_run"]: r["decode_ms_per_step"] for r in runs},
+        "device_busy_ms_per_step": {r["granite_run"]: r["decode_profile"]["device_busy_ms_per_step"]
+                                    for r in runs},
+        "kernels_per_step": {r["granite_run"]: r["decode_profile"].get("kernels_per_step")
+                             for r in runs},
+        "moe_split": {r["granite_run"]: r["moe_split"] for r in runs},
+        "first_prefill_drops": contiguous["first_prefill_drops"],
+        "agreement_with_contiguous": {r["granite_run"]: r["agreement_with_contiguous"]
+                                      for r in runs[1:]},
+        "spec_tokens_per_step": spec["tokens_per_step"], "lm_generator": lm,
+        "token_mode_tok_per_s": tokens["tok_per_s"], "phase_s": time.perf_counter() - t0}
+    print(json.dumps({"granite_phase": summary}), flush=True)
+    return summary
+
+
+def granite_cross_device_check(reduced_cfg) -> dict:
+    """The MoE gate: Granite's reduced fp32 config on the card and on the
+    CPU with the same weights.  The main path's mix served contiguous,
+    paged + share and speculative (``draft_window`` 4): tokens, retrieved
+    nodes, prompts and the decode, draft and share counters equal; the
+    router of layer 0 on 512 rows (200 of them one repeated row, so its
+    experts overflow): experts and kept pairs equal, ``moe_ffn``'s output
+    within 1e-5 (the same fp32 sums in another order); three training
+    losses within the training gate's ``rtol`` 1e-4."""
+    from repro_torch.launch.serve import _serve_rag
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.models.transformer import moe
+
+    distinct = np.random.default_rng(0).choice(3000, 8, replace=False)
+    q_ids = np.concatenate([distinct, distinct[:4]])
+    cases = {"contiguous": {}, "paged_share": dict(paged_kv=True, prefix_share=True, pool_blocks=96),
+             "spec": dict(spec_decode=True, draft_window=4)}
+    summary, params = {}, None
+    for name, kw in cases.items():
+        kw = dict(nodes=3000, cache_len=112, **kw)
+        card = _serve_rag(reduced_cfg, serve_args(**kw), q_ids=q_ids, params=params)
+        params = card["params"]
+        cpu = _serve_rag(reduced_cfg, serve_args(device="cpu", **kw), q_ids=q_ids,
+                         params=to_device(params, "cpu"))
+        runs = [{r.uid: r for r in out["done"]} for out in (card, cpu)]
+        assert sorted(runs[0]) == sorted(runs[1]) == list(range(12)), name
+        for uid, a in runs[0].items():
+            b = runs[1][uid]
+            assert np.array_equal(a.retrieved_nodes, b.retrieved_nodes), (name, uid)
+            assert np.array_equal(a.prompt_ids, b.prompt_ids), (name, uid)
+            assert (a.out_tokens, a.truncated) == (b.out_tokens, b.truncated), (name, uid)
+        keys = ["decode_steps", "decode_tokens", "draft_proposed", "draft_accepted",
+                "prefill_rows", "truncations"]
+        if kw.get("paged_kv"):
+            keys += ["kv_shared_admits", "kv_reused_tokens", "kv_cow_copies", "kv_pins",
+                     "pool_high_water_blocks"]
+        for key in keys:
+            assert card["stats"][key] == cpu["stats"][key], (name, key)
+        summary[name] = {key: card["stats"][key] for key in keys}
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((512, reduced_cfg.d_model)).astype(np.float32)
+    x[:200] = x[0]
+    layer0 = {dev: tm.layer_params(to_device(params, dev), 0)["moe"] for dev in (DEV, "cpu")}
+    routes = {dev: moe.route(layer0[dev], torch.from_numpy(x).to(dev), reduced_cfg.moe)
+              for dev in (DEV, "cpu")}
+    for key in ("expert", "keep", "rank"):
+        assert torch.equal(routes[DEV][key].cpu(), routes["cpu"][key]), key
+    ys = {dev: moe.moe_ffn(layer0[dev], torch.from_numpy(x).to(dev), reduced_cfg.moe)[0]
+          for dev in (DEV, "cpu")}
+    torch.testing.assert_close(ys[DEV].cpu(), ys["cpu"], atol=1e-5, rtol=1e-5)
+    summary["router"] = {"rows": 512, "dropped_pairs": int((~routes["cpu"]["keep"]).sum()),
+                         "y_max_abs_err": (ys[DEV].cpu() - ys["cpu"]).abs().max().item()}
+    assert summary["router"]["dropped_pairs"] > 0
+    summary["train_losses"] = train_cross_device_check(reduced_cfg)
+    return summary
 
 
 # ------------------------------------------------------------ ell_spmm ----
@@ -2748,16 +3228,18 @@ def train_phase(cfg, steps: int = 3, batch: int = 2, n_micro: int = 2, seq: int 
 
 
 
-def per_layer_leaves(tree: dict) -> dict:
-    """Name -> tensor, the stacked ``layers`` leaves split per layer."""
+def per_layer_leaves(tree: dict, prefix: str = "") -> dict:
+    """Name -> tensor, the stacked ``layers`` leaves (nested ``moe`` ones
+    included) split per layer."""
     out = {}
     for key, val in tree.items():
-        if key == "layers" and isinstance(val, dict):
-            out.update({f"layers.{n}.{i}": t[i] for n, t in val.items() for i in range(t.shape[0])})
-        elif isinstance(val, dict):
-            out.update({f"{key}.{n}": t for n, t in val.items()})
+        name = f"{prefix}{key}"
+        if isinstance(val, dict):
+            out.update(per_layer_leaves(val, f"{name}."))
+        elif name.startswith("layers."):
+            out.update({f"{name}.{i}": val[i] for i in range(val.shape[0])})
         else:
-            out[key] = val
+            out[name] = val
     return out
 
 
@@ -2780,14 +3262,14 @@ def kernels_vs_plain_step(cfg, n_layers: int = 2, seq: int = 4096) -> dict:
     reduced config's differ by ~5e-7 (``tests/test_torch_cuda.py``)."""
     from repro_torch.launch.train import _lm_data
     from repro_torch.models.transformer import model as tm
+    from repro_torch.tree import tree_map
 
     small = dataclasses.replace(cfg, n_layers=n_layers)
     base = tm.init_params(small, torch.Generator(device=DEV).manual_seed(1), device=DEV)
     batch = next(_lm_data(small, 2, seq, seed=1, device=DEV))
     out, moments = {}, {}
     for use_kernel in (True, False):
-        params = {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict) else v.clone())
-                  for k, v in base.items()}
+        params = tree_map(torch.clone, base)
         init, step = train_step_fn(small, 2, 3, use_kernel=use_kernel)
         state = init(params)
         torch.cuda.synchronize()
@@ -2849,8 +3331,7 @@ def train_cross_device_check(reduced_cfg, steps: int = 3, seq: int = 1024) -> di
     host = tm.init_params(reduced_cfg, torch.Generator().manual_seed(0), device="cpu")
     losses = {}
     for dev in (DEV, "cpu"):
-        params = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict) else v.to(dev))
-                  for k, v in host.items()}
+        params = to_device(host, dev)
         init, step = train_step_fn(reduced_cfg, 2, steps)
         loop = TrainLoop(step_fn=step, data_iter=_lm_data(reduced_cfg, 2, seq, device=dev),
                          log_every=1, log_fn=lambda *_: None)
@@ -2926,6 +3407,7 @@ def main() -> int:
     item12_phases(card, spec.model_cfg, stack, brute_tokens)
     stack["frozen_tokens"] = brute_tokens
     mutation_phase(card, spec.model_cfg, stack)
+    granite = granite_phase(card, stack)
     del params, stack
     print(json.dumps({"main_path": "the same with the IVF index (64 lists, nprobe 4)",
                       "card": card, **mp_ivf}), flush=True)
@@ -3000,7 +3482,33 @@ def main() -> int:
           flush=True)
     for rec in flash_records:
         rec["launches"] = train["launches"][rec["name"]]
-    records += flash_records + [ell_record, ivf_record]
+
+    # Granite-MoE: the flash kernels at dh 64, two training steps, the
+    # deepseek-7b token-mode serve and the reduced fp32 gate
+    gspec = get_config(GRANITE)
+    flash64 = check_flash(gspec.model_cfg, rng)
+    gtrain, _ = train_phase(gspec.model_cfg, steps=2)
+    print(json.dumps({"training": "granite-moe-1b-a400m bf16 full width and depth, train_4k, "
+                      "global batch 2 as 2 micro-batches", "card": card,
+                      **{k: v for k, v in gtrain.items() if k != "steps_detail"}}), flush=True)
+    for rec in flash64:
+        rec["launches"] = gtrain["launches"][rec["name"]]
+        rec["name"] += "_dh64"
+    gc.collect()
+    torch.cuda.empty_cache()
+    deepseek = token_mode_run(card, "deepseek-7b", requests=4, max_new=8)
+    gate = granite_cross_device_check(gspec.reduced_cfg)
+    print(json.dumps({"granite_cross_device": gate}), flush=True)
+    print(json.dumps({"granite_summary": {
+        "card": card, "moe_device_ms_per_step": {
+            k: v["moe_device_ms_per_step"] for k, v in granite["moe_split"].items()},
+        "moe_bound_ms": granite["moe_bound_ms"], "step_bound_ms": granite["step_bound_ms"],
+        "kernels_per_step": granite["kernels_per_step"],
+        "first_prefill_dropped_share": granite["first_prefill_drops"]["dropped_share_all_pairs"],
+        "flash_dh64_ms": {r["name"]: [r["ms"], r["library_ms"], r["bound_ms"]] for r in flash64},
+        "train_step_wall_ms": [d["wall_ms"] for d in gtrain["steps_detail"]],
+        "deepseek_7b_tok_per_s": deepseek["tok_per_s"]}}), flush=True)
+    records += flash_records + flash64 + [ell_record, ivf_record]
 
     for rec in records:
         print(json.dumps({"kernel": rec["name"], "card": card, **rec}))

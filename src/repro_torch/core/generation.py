@@ -6,10 +6,11 @@ backend instead:
 * :class:`ExtractiveGenerator`: an LM-free summarizer (budgeted extraction
   from the retrieved context, in retrieval-priority order).  Deterministic
   host code; the cheap default of the abstract-generation benchmark.
-* an LM generator (greedy or temperature sampling through prefill and KV
-  decode), registered through :func:`register_lm_generator`.  The port has
-  none yet: :func:`make_lm_generator` raises until one is registered
-  (ROADMAP Queue 1 item 16 ports ``models/transformer/generate.py``).
+* :class:`~repro_torch.models.transformer.generate.LMGenerator`: any of
+  the LM architectures, greedy or temperature sampling through prefill and
+  KV decode.  It lives in ``models/transformer/generate.py`` to avoid a
+  circular import; :func:`make_lm_generator` registers it on first use
+  (:func:`register_lm_generator` replaces it).
 """
 from __future__ import annotations
 
@@ -60,7 +61,7 @@ def register_lm_generator(factory) -> None:
 
 def make_lm_generator(*args, **kw):
     if _LM_GENERATOR_FACTORY is None:
-        raise NotImplementedError(
-            "the LM generator is not ported yet: ROADMAP Queue 1 item 16 "
-            "(models/transformer/generate.py); register one with register_lm_generator")
+        from repro_torch.models.transformer import generate as _g  # lazy wiring
+
+        register_lm_generator(_g.LMGenerator)
     return _LM_GENERATOR_FACTORY(*args, **kw)

@@ -1,7 +1,12 @@
-"""Serving launcher (``--rag``): a synthetic citation graph + a vector index
+"""Serving launcher, on the card by default.  Two modes:
+
+* token mode (default): random already-tokenized prompts through the slot
+  engine ``ServeEngine`` (the generation stage only); ``--spec-decode`` and
+  ``--paged-kv`` as below.
+* ``--rag``: a synthetic citation graph + a vector index
 (brute, IVF, sharded or sharded IVF) feed raw (query embedding, query text)
 requests through ``RAGServeEngine`` (batched retrieval admission + retrieval
-cache + decode), on the card by default.  ``--prefetch`` overlaps the next
+cache + decode).  ``--prefetch`` overlaps the next
 wave's retrieval with decode on a side CUDA stream; ``--fault-rate`` injects
 seeded retrieval faults (``--retries``, ``--retrieval-timeout`` and the
 degradation ladder contain them); ``--replicas N`` serves through N engines
@@ -11,6 +16,7 @@ behind ``ReplicaRouter`` with a shared retrieval cache, and
 while a seeded writer mutates the corpus between engine steps
 (``--compact-every`` compacts every N batches).
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b --rag
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b --rag \
         --nodes 169343
@@ -26,7 +32,8 @@ while a seeded writer mutates the corpus between engine steps
         --device cpu --nodes 1000 --mutate-rate 0.1
 
 The CLI serves the arch's reduced config, as the reference launcher does;
-:func:`_serve_rag` takes any config (``chip_smoke.py`` passes the full one).
+:func:`_serve_tokens` and :func:`_serve_rag` take any config
+(``chip_smoke.py`` passes the full one).
 """
 from __future__ import annotations
 
@@ -47,9 +54,45 @@ from repro_torch.graph import generators
 from repro_torch.graph.ell import csr_to_ell
 from repro_torch.models.transformer import model as tm
 from repro_torch.serving import (
-    FaultyReplica, FaultyRetrieval, RAGRequest, RAGServeEngine, ReplicaRouter, RetrievalCache,
-    ServingConfig,
+    FaultyReplica, FaultyRetrieval, RAGRequest, RAGServeEngine, ReplicaRouter, Request,
+    RetrievalCache, ServeEngine, ServingConfig,
 )
+
+
+def _serve_tokens(cfg, args, params: Optional[dict] = None) -> dict:
+    """Token mode: ``args.requests`` random prompts (4 to 15 tokens drawn
+    from ``default_rng(0)`` over ids 1..vocab-1, as the reference launcher
+    draws them) through one ``ServeEngine`` with ``cache_len`` the sliding
+    window or 128, and the spec-decode and paged flags of ``args`` (optional
+    attributes).  ``params`` replaces the seeded random weights.  Returns a
+    summary (engine, finished requests, tokens, seconds)."""
+    dev = resolve_device(args.device)
+    t_setup = time.perf_counter()
+    if params is None:
+        params = tm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    cache_len = cfg.sliding_window or 128
+    opt = lambda name: getattr(args, name, None)  # noqa: E731
+    eng = ServeEngine(params, cfg, slots=args.slots, cache_len=cache_len,
+                      spec_decode=opt("spec_decode"), draft_window=opt("draft_window"),
+                      paged_kv=opt("paged_kv"), block_size=opt("kv_block"),
+                      pool_blocks=opt("pool_blocks"), device=dev)
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()  # the set-up's work, before the clock
+    setup_s = time.perf_counter() - t_setup
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    for u in range(args.requests):
+        eng.submit(Request(
+            uid=u, prompt_ids=rng.integers(1, cfg.vocab, size=int(rng.integers(4, 16)))
+            .astype(np.int32), max_new_tokens=args.max_new))
+    done = eng.run_to_completion()
+    dt = time.perf_counter() - t0
+    toks = sum(len(r.out_tokens) for r in done)
+    s = eng.decode_stats()
+    return {"engine": eng, "done": done, "cfg": cfg, "params": params, "cache_len": cache_len,
+            "setup_s": setup_s, "serve_s": dt, "tokens": toks, "tok_per_s": toks / dt,
+            "decode_ms_per_step": 1e3 * s["decode_seconds"] / max(s["decode_steps"], 1),
+            "stats": s}
 
 
 def _build_rag(cfg, args, params: Optional[dict] = None) -> dict:
@@ -260,9 +303,11 @@ def _print_kv_stats(s: dict) -> None:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=C.ARCH_IDS)
+    lm_archs = [a for a in C.ARCH_IDS if C.get_config(a).family == "lm"]
+    ap.add_argument("--arch", required=True, choices=lm_archs)
     ap.add_argument("--rag", action="store_true",
-                    help="serve end-to-end through the fused RAG engine (the mode ported)")
+                    help="serve end-to-end through the fused RAG engine (default: token mode, "
+                         "random prompts through the slot engine)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max_new", type=int, default=12)
@@ -362,9 +407,14 @@ def main(argv=None):
                     help="seed of the per-row fault schedule")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    cfg = C.get_config(args.arch).reduced_cfg
     if not args.rag:
-        raise SystemExit("token mode is not ported yet (ROADMAP Queue 1 item 15); pass --rag")
-    out = _serve_rag(C.get_config(args.arch).reduced_cfg, args)
+        out = _serve_tokens(cfg, args)
+        print(f"[{args.arch}] served {len(out['done'])} requests / {out['tokens']} tokens in "
+              f"{out['serve_s']:.2f}s ({out['tok_per_s']:.1f} tok/s) on {args.device}")
+        _print_kv_stats(out["stats"])
+        return out
+    out = _serve_rag(cfg, args)
     if args.replicas > 1:
         _print_fleet(args, out)
         return out

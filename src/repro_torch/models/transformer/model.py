@@ -1,15 +1,17 @@
 """Decoder-only LM: init, train forward with a streamed loss, prefill,
 decode and speculative verification over a contiguous KV arena or a paged
-block pool (optionally int8 with per-row scales).  Dense SwiGLU FFN, GQA +
-RoPE, optional sliding window.
+block pool (optionally int8 with per-row scales).  Dense SwiGLU or MoE FFN
+(:mod:`~repro_torch.models.transformer.moe`), GQA + RoPE, optional sliding
+window.
 
 Parameters are a plain dict with the reference's structure and layout:
 ``embed`` (V, D), ``head`` (D, V), ``ln_f`` (D,), and ``layers`` whose
-leaves are stacked on a leading L axis (``wq`` (L, D, H*dh), ...).  Training
-may pass ``layers`` as a list of per-layer dicts instead (see
-:func:`layer_params`).  A Python loop over layers stands where the reference
-scans.  Projections, the FFN and the LM head are plain matmuls (cuBLAS on
-the card), as the reference leaves them to XLA.
+leaves are stacked on a leading L axis (``wq`` (L, D, H*dh), ...; a MoE
+config holds a nested ``moe`` dict of stacked leaves instead of ``w1``,
+``w3``, ``w2``).  Training may pass ``layers`` as a list of per-layer dicts
+instead (see :func:`layer_params`).  A Python loop over layers stands where
+the reference scans.  Projections, the FFN and the LM head are plain
+matmuls (cuBLAS on the card), as the reference leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -24,17 +26,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.models.transformer import attention as attn
 from repro_torch.models.transformer.config import TransformerConfig
+from repro_torch.models.transformer.moe import init_moe_params, moe_ffn
+from repro_torch.tree import tree_map
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
 
 def _dtype(cfg: TransformerConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
-
-
-def _check_supported(cfg: TransformerConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE FFN is not ported yet: ROADMAP Queue 1 item 16")
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -49,7 +48,6 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 def init_params(cfg: TransformerConfig, generator: torch.Generator, device="cuda") -> dict:
     """Random weights with the reference's shapes and scales, drawn from
     ``generator`` (on its own device) and stored on ``device``."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg)
     d, h, kv, dh, L = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.n_layers
@@ -69,10 +67,12 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator, device="cuda
         "wk": nrm((L, d, kv * dh), s_d),
         "wv": nrm((L, d, kv * dh), s_d),
         "wo": nrm((L, h * dh, d), (h * dh) ** -0.5),
-        "w1": nrm((L, d, cfg.d_ff), s_d),
-        "w3": nrm((L, d, cfg.d_ff), s_d),
-        "w2": nrm((L, cfg.d_ff, d), cfg.d_ff**-0.5),
     }
+    if cfg.moe is None:
+        layers.update(w1=nrm((L, d, cfg.d_ff), s_d), w3=nrm((L, d, cfg.d_ff), s_d),
+                      w2=nrm((L, cfg.d_ff, d), cfg.d_ff**-0.5))
+    else:
+        layers["moe"] = init_moe_params(generator, d, cfg.moe, dtype, L, dev)
     return {
         "embed": nrm((cfg.vocab, d), 1.0),
         "layers": layers,
@@ -83,8 +83,9 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator, device="cuda
 
 def params_from_jax(params_np: dict, cfg: TransformerConfig, device="cuda") -> dict:
     """The reference's parameter pytree (leaves as numpy arrays, layers
-    stacked on L) as the port's parameters, so both compute one function."""
-    _check_supported(cfg)
+    stacked on L, a MoE config's ``moe`` dict nested in them) as the port's
+    parameters, so both compute one function.  Each leaf keeps its dtype
+    (the fp32 norms and router stay fp32)."""
     dev = resolve_device(device)
 
     def conv(x):
@@ -93,23 +94,19 @@ def params_from_jax(params_np: dict, cfg: TransformerConfig, device="cuda") -> d
             return torch.from_numpy(a.astype(np.float32)).to(device=dev, dtype=torch.bfloat16)
         return torch.from_numpy(np.array(a)).to(dev)
 
-    return {
-        "embed": conv(params_np["embed"]),
-        "layers": {name: conv(v) for name, v in params_np["layers"].items()},
-        "ln_f": conv(params_np["ln_f"]),
-        "head": conv(params_np["head"]),
-    }
+    return {key: tree_map(conv, params_np[key]) for key in ("embed", "layers", "ln_f", "head")}
 
 
 def layer_params(params: dict, i: int) -> dict:
     """Layer ``i``'s weights: ``params["layers"]`` is either the stacked
     dict (serving, the reference's layout) or a list of per-layer dicts
     (training: indexing a stacked leaf that requires grad would make
-    autograd allocate and zero-fill a full (L, ...) gradient per layer)."""
+    autograd allocate and zero-fill a full (L, ...) gradient per layer).
+    Nested dicts (``moe``) are sliced leaf by leaf."""
     layers = params["layers"]
     if isinstance(layers, (list, tuple)):
         return layers[i]
-    return {name: v[i] for name, v in layers.items()}
+    return tree_map(lambda v: v[i], layers)
 
 
 def _attn_proj(p, xn, cfg: TransformerConfig):
@@ -121,9 +118,17 @@ def _attn_proj(p, xn, cfg: TransformerConfig):
 
 
 def _ffn(p, x, cfg: TransformerConfig):
+    """The FFN block with its residual: (x + FFN(norm(x)), aux).  The MoE
+    FFN routes every row of ``x`` (the call site's B * S tokens, padding
+    and dead slots included, as in the reference); ``aux`` is its Switch
+    loss, None for the dense FFN."""
     xn = rms_norm(x, p["ln2"], cfg.norm_eps)
-    y = (F.silu(xn @ p["w1"]) * (xn @ p["w3"])) @ p["w2"]
-    return x + y.to(x.dtype)
+    if cfg.moe is None:
+        y, aux = (F.silu(xn @ p["w1"]) * (xn @ p["w3"])) @ p["w2"], None
+    else:
+        y, aux = moe_ffn(p["moe"], xn.reshape(-1, xn.shape[-1]), cfg.moe)
+        y = y.reshape(xn.shape)
+    return x + y.to(x.dtype), aux
 
 
 # --------------------------------------------------------------------------
@@ -151,18 +156,19 @@ def backbone(params, tokens: torch.Tensor, cfg: TransformerConfig, use_kernel=No
     """tokens (B, S) -> (hidden (B, S, D), aux_loss).  With ``cfg.remat``
     each layer is recomputed in the backward (non-reentrant
     ``torch.utils.checkpoint``), so only layer inputs are kept."""
-    _check_supported(cfg)
     x = params["embed"][tokens.long()]
     positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)[None, :]
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         p = layer_params(params, i)
         if remat:  # the layer draws no random numbers: no RNG state to keep
-            x = checkpoint(_layer_train, x, p, cfg, positions, use_kernel,
-                           use_reentrant=False, preserve_rng_state=False)
+            x, a = checkpoint(_layer_train, x, p, cfg, positions, use_kernel,
+                              use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _layer_train(x, p, cfg, positions, use_kernel)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)  # dense FFN: no router loss
+            x, a = _layer_train(x, p, cfg, positions, use_kernel)
+        if a is not None:  # the layers' router losses, summed as the reference's scan does
+            aux = aux + a
     return rms_norm(x, params["ln_f"], cfg.norm_eps), aux
 
 
@@ -223,7 +229,6 @@ def _quant_rows(x: torch.Tensor):
 
 
 def init_cache(cfg: TransformerConfig, batch: int, cache_len: int, device="cuda") -> KVCache:
-    _check_supported(cfg)
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.d_head)
     kv_dtype = torch.int8 if cfg.kv_quant else _dtype(cfg)
@@ -250,7 +255,6 @@ def prefill(params, tokens: torch.Tensor, true_len: torch.Tensor,
     Prompts longer than ``max(q_chunk, 256)`` take flash attention
     (``use_kernel`` as in :func:`attention.chunked_attention`).
     """
-    _check_supported(cfg)
     b, s = tokens.shape
     if s > cache_len:
         raise ValueError(f"prompt bucket {s} exceeds cache_len {cache_len}")
@@ -272,7 +276,7 @@ def prefill(params, tokens: torch.Tensor, true_len: torch.Tensor,
         k = attn.rope(k, positions, cfg.rope_theta)
         o = _attention(q, k, v, cfg, use_kernel)
         x = x + (o.reshape(b, s, -1) @ p["wo"]).to(x.dtype)
-        x = _ffn(p, x, cfg)
+        x, _ = _ffn(p, x, cfg)
         if quant:
             kc[i, :, :s], ks[i, :, :s] = _quant_rows(k)
             vc[i, :, :s], vs[i, :, :s] = _quant_rows(v)
@@ -296,7 +300,6 @@ def decode_step(params, cache: KVCache, token: torch.Tensor, cfg: TransformerCon
     cache each step): at the serving shape the arena is 0.5 GB, and a copy
     would add a read and a write of all of it to every step.
     """
-    _check_supported(cfg)
     b = token.shape[0]
     sc = cache.k.shape[2]
     cur = cache.cursor  # (B,) position of the token being processed
@@ -326,7 +329,7 @@ def decode_step(params, cache: KVCache, token: torch.Tensor, cfg: TransformerCon
         o = attn.decode_attention(q, cache.k[i], cache.v[i], pos, cur, cfg.sliding_window,
                                   k_scale=ks, v_scale=vs)
         x = x + (o.reshape(b, 1, -1) @ p["wo"]).to(x.dtype)
-        x = _ffn(p, x, cfg)
+        x, _ = _ffn(p, x, cfg)
     cache.pos = pos
     cache.cursor = cur + 1
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
@@ -361,7 +364,6 @@ def verify_window(params, cache: KVCache, tokens: torch.Tensor, cfg: Transformer
     overwrites them before any attention runs.  The arena is updated in
     place, as in :func:`decode_step`.
     """
-    _check_supported(cfg)
     b, w = tokens.shape
     sc = cache.k.shape[2]
     cur = cache.cursor  # (B,)
@@ -404,7 +406,7 @@ def verify_window(params, cache: KVCache, tokens: torch.Tensor, cfg: Transformer
         o = attn.verify_attention(q, cache.k[i], cache.v[i], pos, positions, cfg.sliding_window,
                                   k_scale=ks, v_scale=vs)
         x = x + (o.reshape(b, w, -1) @ p["wo"]).to(x.dtype)
-        x = _ffn(p, x, cfg)
+        x, _ = _ffn(p, x, cfg)
     cache.pos = pos
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = x.float() @ params["head"].float()  # (B, W, V)
@@ -481,7 +483,6 @@ def init_paged_cache(cfg: TransformerConfig, batch: int, cache_len: int, block_s
                      pool_blocks: int, device="cuda") -> PagedKVCache:
     """An empty pool (zeroed, so gathers of unused rows stay finite) with
     every block on the free stack."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     if cache_len % block_size != 0:
         raise ValueError(f"block_size={block_size} must divide cache_len={cache_len}")
@@ -666,7 +667,6 @@ def paged_decode_step(params, cache: PagedKVCache, token: torch.Tensor, live: to
     between admissions, but it never pops a block or writes a row.  The
     pool is updated in place; the rows to write are picked once a step
     (one host sync, before the layers run)."""
-    _check_supported(cfg)
     b = token.shape[0]
     sc = cache.pos.shape[1]
     bs = block_size
@@ -704,7 +704,7 @@ def paged_decode_step(params, cache: PagedKVCache, token: torch.Tensor, live: to
         o = attn.paged_decode_attention(q, cache.k[i], cache.v[i], rows, pos, cur,
                                         cfg.sliding_window, k_scale=ks, v_scale=vs)
         x = x + (o.reshape(b, 1, -1) @ p["wo"]).to(x.dtype)
-        x = _ffn(p, x, cfg)
+        x, _ = _ffn(p, x, cfg)
     cache = dataclasses.replace(cache, pos=pos, cursor=cur + 1, table=table, n_free=n_free,
                                 ref=ref)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
@@ -728,7 +728,6 @@ def paged_verify_window(params, cache: PagedKVCache, tokens: torch.Tensor, live:
     arena's, so the greedy tokens do too.  Returns (greedy (B, W), cache)
     with the cursor unchanged; the pool is updated in place, its rows
     picked once a call (one host sync, before the layers run)."""
-    _check_supported(cfg)
     b, w = tokens.shape
     sc = cache.pos.shape[1]
     bs = block_size
@@ -773,7 +772,7 @@ def paged_verify_window(params, cache: PagedKVCache, tokens: torch.Tensor, live:
         o = attn.paged_verify_attention(q, cache.k[i], cache.v[i], rows, pos, positions,
                                         cfg.sliding_window, k_scale=ks, v_scale=vs)
         x = x + (o.reshape(b, w, -1) @ p["wo"]).to(x.dtype)
-        x = _ffn(p, x, cfg)
+        x, _ = _ffn(p, x, cfg)
     cache = dataclasses.replace(cache, pos=pos, table=table, n_free=n_free, ref=ref)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = x.float() @ params["head"].float()

@@ -29,7 +29,7 @@ import torch
 from repro_torch.distributed.compression import CompressionConfig, compress, init_residuals
 from repro_torch.distributed.fault import Heartbeat, StragglerMonitor
 from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def _leaf(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -41,12 +41,13 @@ def _leaf(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 def train_view(params: dict, grads: dict) -> dict:
     """``params`` with every leaf a grad-requiring view whose ``.grad`` is
     the matching view of ``grads``; a ``layers`` dict of stacked leaves
-    becomes a list of per-layer dicts (see the module docstring)."""
+    (nested dicts such as ``moe`` included) becomes a list of per-layer
+    dicts (see the module docstring)."""
     out = {}
     for key, val in params.items():
         if key == "layers" and isinstance(val, dict):
-            n = next(iter(val.values())).shape[0]
-            out[key] = [{name: _leaf(v[i], grads[key][name][i]) for name, v in val.items()}
+            n = tree_leaves(val)[0].shape[0]
+            out[key] = [tree_map(lambda v, g, i=i: _leaf(v[i], g[i]), val, grads[key])
                         for i in range(n)]
         else:
             out[key] = tree_map(_leaf, val, grads[key])

@@ -1309,3 +1309,118 @@ def test_prefetched_wave_keeps_its_snapshot_across_a_mutation(dev):
     for u in range(4):
         assert np.array_equal(done[u].retrieved_nodes, want.nodes[u][want.mask[u]].numpy()), u
     assert eng.cache.stats()["stale_rejects"] >= 1
+
+
+# ------------------------------------------------------------------ MoE FFN ---
+def _moe_layer(dtype, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m").reduced_cfg, dtype=dtype)
+    params = tm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    p = tm.layer_params(params, 0)["moe"]
+    return cfg, p, tree_map(lambda t: t.to(dev), p)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_ffn_on_the_card_matches_the_cpu(dev, dtype):
+    """Layer 0's router and MoE FFN on 512 rows, 200 of them one repeated
+    row (its experts overflow): experts, ranks and kept pairs exact; y
+    within 1e-5 in fp32 (the same sums in another order) and one bf16 ulp
+    plus 1e-3 of the largest |y| in bf16 (each side rounds its fp32 sums
+    to bf16 once, the card through ``bmm(out_dtype=float32)`` where PyTorch
+    has it, the CPU through an fp32 upcast)."""
+    from repro_torch.models.transformer import moe
+
+    cfg, p_cpu, p_dev = _moe_layer(dtype, dev)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((512, cfg.d_model)).astype(np.float32)
+    x[:200] = x[0]
+    xc = torch.from_numpy(x).to(getattr(torch, dtype))
+    r_dev, r_cpu = moe.route(p_dev, xc.to(dev), cfg.moe), moe.route(p_cpu, xc, cfg.moe)
+    for key in ("expert", "rank", "keep"):
+        assert torch.equal(r_dev[key].cpu(), r_cpu[key]), key
+    assert not r_cpu["keep"].all()
+    y_dev, aux_dev = moe.moe_ffn(p_dev, xc.to(dev), cfg.moe)
+    y_cpu, aux_cpu = moe.moe_ffn(p_cpu, xc, cfg.moe)
+    assert y_dev.dtype == xc.dtype
+    if dtype == "float32":
+        torch.testing.assert_close(y_dev.cpu(), y_cpu, atol=1e-5, rtol=1e-5)
+    else:
+        torch.testing.assert_close(y_dev.cpu().float(), y_cpu.float(), rtol=2**-7,
+                                   atol=1e-3 * y_cpu.float().abs().max().item())
+    torch.testing.assert_close(aux_dev.cpu(), aux_cpu, atol=1e-6, rtol=1e-6)
+
+
+def test_moe_grouped_product_out_dtype_equals_the_upcast(dev):
+    """Where PyTorch has ``bmm(out_dtype=float32)`` on the card, the grouped
+    products take it at inference; it computes the upcast's function (exact
+    bf16 products, fp32 sums): within 1e-5 relative of the fp32 bmm of
+    the upcast operands."""
+    from repro_torch.models.transformer import moe
+
+    if not moe.bmm_out_dtype_available():
+        pytest.skip("this PyTorch has no CUDA kernel for bmm(out_dtype=)")
+    rng = np.random.default_rng(6)
+    a = torch.from_numpy(rng.standard_normal((32, 8, 1024)).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.standard_normal((32, 1024, 512)).astype(np.float32)).to(dev)
+    a, b = a.bfloat16(), b.bfloat16()
+    with torch.no_grad():
+        got = moe._bmm_f32(a, b)
+    want = torch.bmm(a.float(), b.float())
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("paged,spec", [(False, False), (True, False), (False, True)])
+def test_moe_serve_on_the_card_matches_the_cpu(dev, paged, spec):
+    """Granite's reduced fp32 MoE LM through the slot engine: the card's
+    tokens and decode counters equal the CPU's (padded prefill buckets and
+    verify windows drop pairs the same way on both)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.serving.engine import Request, ServeEngine
+    from repro_torch.tree import tree_map
+
+    cfg = get_config("granite-moe-1b-a400m").reduced_cfg
+    params = tm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, cfg.vocab, int(n)).astype(np.int32) for n in rng.integers(3, 30, 7)]
+    outs, stats = [], []
+    for p, d in ((tree_map(lambda t: t.to(dev), params), "cuda"), (params, "cpu")):
+        eng = ServeEngine(p, cfg, slots=3, cache_len=64, paged_kv=paged, block_size=8,
+                          spec_decode=spec, draft_window=4, device=d)
+        for u, ids in enumerate(prompts):
+            eng.submit(Request(uid=u, prompt_ids=ids, max_new_tokens=16))
+        outs.append({r.uid: (r.out_tokens, r.truncated) for r in eng.run_to_completion()})
+        stats.append(eng.decode_stats())
+    assert outs[0] == outs[1]
+    for key in ("decode_steps", "draft_proposed", "draft_accepted", "prefill_rows"):
+        assert stats[0][key] == stats[1][key], key
+
+
+def test_moe_train_steps_on_the_card_match_the_cpu(dev):
+    """Three ``make_train_step`` steps of Granite's reduced fp32 config
+    (2 micro-batches, S = 64) on the card and the CPU from the same
+    weights: losses and aux within ``rtol`` 1e-4 (the training gate's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import _lm_data
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.training import AdamWConfig, make_train_step
+    from repro_torch.tree import tree_map
+
+    cfg = get_config("granite-moe-1b-a400m").reduced_cfg
+    host = tm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    got = {}
+    for d in ("cuda", "cpu"):
+        init, step = make_train_step(
+            lambda p, b: tm.lm_loss(p, b["tokens"], b["loss_mask"], cfg),
+            AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10), n_microbatches=2)
+        state = init(tree_map(lambda t: t.clone().to(d), host))
+        data = _lm_data(cfg, 4, 64, device=d)
+        got[d] = []
+        for _ in range(3):
+            state, m = step(state, next(data))
+            got[d].append([float(m["loss"]), float(m["aux"])])
+    np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-4)

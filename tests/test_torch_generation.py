@@ -1,6 +1,8 @@
 """The port's paper metrics and generation stage against the reference's:
 ROUGE-1/2/L (``core/rouge.py``), the extractive generator and the LM
-generator registry (``core/generation.py``), and the paper's configuration
+generator registry (``core/generation.py``; the LM generator itself is held
+to the reference in ``tests/test_torch_lm_generate.py``), and the paper's
+configuration
 (``configs/rgl_paper.py``).
 
 ROUGE dicts must be equal (the same float operations in the same order).
@@ -77,12 +79,27 @@ def test_extractive_generator_equals_reference(max_words, max_new):
     assert all(len(s.split()) <= budget for s in b)
 
 
-def test_lm_generator_waits_for_item_16():
-    """No LM generator is ported: ``make_lm_generator`` raises (it imports
-    nothing of the reference) until one is registered."""
-    with pytest.raises(NotImplementedError, match="item 16"):
-        generation.make_lm_generator()
+def test_make_lm_generator_returns_the_ports_lm_generator():
+    """``make_lm_generator`` wires the port's ``LMGenerator`` on first use
+    (it imports nothing of the reference); ``register_lm_generator``
+    replaces the factory."""
+    import torch
+
+    from repro_torch.models.transformer import generate
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.models.transformer.config import TransformerConfig
+
+    cfg = TransformerConfig(name="t", n_layers=1, d_model=16, n_heads=2, n_kv_heads=1, d_head=8,
+                            d_ff=32, vocab=11, dtype="float32")
+    params = tm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    vocab = Vocab.build(["graph node"])
     try:
+        generation.register_lm_generator(None)
+        gen = generation.make_lm_generator(params, cfg, vocab, temperature=0.5, seed=9)
+        assert type(gen) is generate.LMGenerator and gen.temperature == 0.5
+        assert gen.id_to_word == {6: "graph", 7: "node"}
+        ids = np.array([[1, 6, 7, 4, 0]], np.int32)
+        assert len(gen.generate(ids, ids > 0, 3)) == 1
         generation.register_lm_generator(lambda *a, **kw: ("made", a, kw))
         assert generation.make_lm_generator(1, x=2) == ("made", (1,), {"x": 2})
     finally:

@@ -37,7 +37,8 @@ assert not bad, bad
                                     "configs.rgl_paper", "serving.drafter",
                                     "serving.engine", "serving.rag_engine",
                                     "serving.simulate", "serving.router", "graph.delta",
-                                    "core.mutation"])
+                                    "core.mutation", "models.transformer.moe",
+                                    "models.transformer.generate", "launch.serve"])
 def test_module_alone_imports_neither_jax_nor_the_reference(module):
     """Each host-copied module (and the engines that use the drafter),
     imported on its own in a fresh interpreter, loads no JAX and nothing of
@@ -127,6 +128,8 @@ def test_rag_engine_and_launcher_default_to_cuda():
         ReplicaRouter([RAGServeEngine(_Pipe(), {}, None) for _ in range(2)])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "starcoder2-3b", "--rag", "--nodes", "50"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):  # token mode
+        serve.main(["--arch", "granite-moe-1b-a400m"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "starcoder2-3b", "--rag", "--nodes", "50", "--prefetch",
                     "--replicas", "2"])

@@ -137,10 +137,17 @@ def test_init_params_shapes_match_reference():
     assert torch.equal(params["layers"]["wq"], again["layers"]["wq"])
 
 
-def test_unported_model_paths_raise():
-    _, _, cfg, params = _models(None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        tm.init_params(dataclasses.replace(cfg, moe=MoEConfig(4, 2, 32)),
-                       torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        tm.init_cache(dataclasses.replace(cfg, moe=MoEConfig(4, 2, 32)), 1, 8, device="cpu")
+def test_moe_config_builds_params_and_caches():
+    """A MoE config builds its parameters (a nested ``moe`` dict stacked on
+    L, the router fp32) and both KV arenas, and prefills."""
+    _, _, cfg, _ = _models(None)
+    mcfg = dataclasses.replace(cfg, moe=MoEConfig(4, 2, 32), d_ff=0)
+    params = tm.init_params(mcfg, torch.Generator().manual_seed(0), device="cpu")
+    assert {k: tuple(v.shape) for k, v in params["layers"]["moe"].items()} == {
+        "router": (2, 64, 4), "w1": (2, 4, 64, 32), "w3": (2, 4, 64, 32), "w2": (2, 4, 32, 64)}
+    assert "w1" not in params["layers"]
+    assert tm.init_cache(mcfg, 1, 8, device="cpu").k.shape == (2, 1, 8, 2, 16)
+    assert tm.init_paged_cache(mcfg, 1, 16, 8, 2, device="cpu").k.shape == (2, 16, 2, 16)
+    toks = torch.ones((1, 8), dtype=torch.int32)
+    logits, _ = tm.prefill(params, toks, torch.tensor([5], dtype=torch.int32), mcfg, 8)
+    assert logits.shape == (1, 97) and bool(torch.isfinite(logits).all())
