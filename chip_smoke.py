@@ -101,7 +101,22 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    at full width and depth (4 requests x 8 tokens), and the MoE gate:
    Granite's reduced fp32 config on the card against the CPU (tokens of
    contiguous, paged + share and spec serves, the router's kept pairs,
-   three training losses).
+   three training losses);
+11. the GNN zoo and Wide & Deep (fp32, published width and depth through
+   ``effective_model_cfg``, weights from a seed): three profiled
+   ``make_train_step`` + ``TrainLoop`` steps each of MeshGraphNet (15 x
+   128), GraphCast (16 x 512, n_vars 608) and GIN (5 x 64) on the
+   ``minibatch_lg`` cell's concrete inputs (169,984 nodes x 608 features,
+   180,224 edges), EquiformerV2 (12 x 128, l_max 6, m_max 2) on 128
+   molecule graphs joined by ``batch_graphs`` (16,384 padded edges, the
+   32 x 64 Wigner LUT) and Wide & Deep (40 fields x 1M rows x 32) at batch
+   65,536; each a ``gnn_run`` / ``recsys_run`` line (losses, wall ms, device
+   ms split GEMM / gather-scatter / optimizer / other, peak GB); Wide &
+   Deep's forward at batch 512 and 262,144 timed, and ``retrieval_scores``
+   at Q 1 x N 1M x D 256, k 100 through the ``topk_sim`` kernel (its
+   launch counted, its record ``topk_sim_retrieval_cand``); then the five
+   reduced fp32 configs on the card against the CPU (``zoo_cross_device``)
+   and a ``zoo_phase`` summary.
 
 The second-to-last line is ``{"kernels": [...]}`` (one record per kernel);
 the last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -112,6 +127,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import itertools
 import json
 import re
 import statistics
@@ -189,10 +205,13 @@ def device_ms(fn, calls: int = 10, traces: int = 3) -> tuple[float, dict]:
 
 
 def kernel_ms_by_name(prof, per: int) -> dict:
-    """Device time of the kernels in a profiler trace, ms per ``per``."""
+    """Device time of the kernels in a profiler trace, ms per ``per``.  The
+    device-side spans of ``record_function`` ranges (``optimizer_annotated``,
+    ``moe_annotated``) are not kernels and are left out."""
     by_name: dict = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA and not (
+                getattr(e, "is_user_annotation", False) or e.name in ANNOTATIONS):
             by_name[e.name[:48]] = by_name.get(e.name[:48], 0.0) + e.device_time / 1e3 / per
     return by_name
 
@@ -211,6 +230,11 @@ def to_device(params: dict, device) -> dict:
     from repro_torch.tree import tree_map
 
     return tree_map(lambda t: t.to(device), params)
+
+
+# the record_function ranges the profiled phases wrap around package calls
+MOE_RANGES = ("moe_ffn", "moe_route", "moe_products")
+ANNOTATIONS = MOE_RANGES + ("adamw_update",)
 
 
 # kernel-name fragments of the port's hand-written kernels in a trace (the
@@ -2100,7 +2124,6 @@ def profile_decode(engine, steps: int = 5) -> dict:
 
 # ------------------------------------------------------------ Granite-MoE ----
 GRANITE = "granite-moe-1b-a400m"
-MOE_RANGES = ("moe_ffn", "moe_route", "moe_products")
 
 
 @contextlib.contextmanager
@@ -3340,6 +3363,324 @@ def train_cross_device_check(reduced_cfg, steps: int = 3, seq: int = 1024) -> di
     return losses
 
 
+# ------------------------------------------------- GNN zoo and Wide & Deep ----
+# the four GNN runs: (arch, shape); EquiformerV2 at minibatch_lg does not
+# fit one card (PERF.md section 7)
+GNN_RUNS = (("meshgraphnet", "minibatch_lg"), ("graphcast", "minibatch_lg"),
+            ("gin-tu", "minibatch_lg"), ("equiformer-v2", "molecule"))
+ZOO_ARCHS = ("gin-tu", "meshgraphnet", "graphcast", "equiformer-v2", "wide-deep")
+GEMM_FRAGMENTS = ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")
+GATHER_SCATTER_FRAGMENTS = ("index", "scatter", "gather")
+
+
+@contextlib.contextmanager
+def optimizer_annotated():
+    """``adamw_update`` wrapped in a ``record_function`` range (as the train
+    step calls it) for the profiled steps."""
+    from torch.profiler import record_function
+
+    from repro_torch.training import loop
+
+    saved = loop.adamw_update
+
+    def inner(*a, **kw):
+        with record_function("adamw_update"):
+            return saved(*a, **kw)
+
+    loop.adamw_update = inner
+    try:
+        yield
+    finally:
+        loop.adamw_update = saved
+
+
+def zoo_split(by_name: dict, optimizer_ms: float) -> dict:
+    """Device ms of a training step: cuBLAS GEMMs and gathers/scatters by
+    kernel name, the optimizer's kernels by their range, the rest other."""
+    gemm = sum(ms for n, ms in by_name.items() if any(f in n.lower() for f in GEMM_FRAGMENTS))
+    gs = sum(ms for n, ms in by_name.items()
+             if not any(f in n.lower() for f in GEMM_FRAGMENTS)
+             and any(f in n.lower() for f in GATHER_SCATTER_FRAGMENTS))
+    return {"gemm": gemm, "gather_scatter": gs, "optimizer": optimizer_ms,
+            "other": sum(by_name.values()) - gemm - gs - optimizer_ms}
+
+
+def profiled_train(params, loss_fn, data, steps: int) -> tuple[list, dict]:
+    """``steps`` steps of ``make_train_step`` + ``TrainLoop`` (AdamW as the
+    reference launcher sets it), each profiled: loss, wall ms, device ms
+    split by ``zoo_split``, kernels, peak GB.  Returns (per-step records,
+    the state)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.training import TrainLoop, make_train_step
+
+    init_state, step = make_train_step(loss_fn, opt_config(steps))
+    state = init_state(params)
+    recs: list = []
+
+    def profiled_step(state, batch):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with optimizer_annotated(), profile(activities=[ProfilerActivity.CPU,
+                                                        ProfilerActivity.CUDA]) as prof:
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+        by_name = kernel_ms_by_name(prof, 1)
+        opt_ms, _ = range_device(prof, "adamw_update", 1)
+        rec = {"step": len(recs) + 1, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "wall_ms": wall, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "kernels": sum(1 for e in prof.events()
+                              if e.device_type == torch.autograd.DeviceType.CUDA)}
+        if by_name:
+            rec.update(device_ms=sum(by_name.values()), device_ms_split=zoo_split(by_name, opt_ms))
+            if not recs:
+                rec["top_kernels_ms"] = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+        else:
+            rec["device_ms"] = "not measured (the trace held no device events)"
+        recs.append(rec)
+        return state, m
+
+    state, history = TrainLoop(step_fn=profiled_step, data_iter=data, log_every=1,
+                               log_fn=lambda *_: None).run(state, steps)
+    assert [h[0] for h in history] == list(range(1, steps + 1))
+    assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in recs), recs
+    return recs, state
+
+
+def molecule_inputs(cfg, shape, device) -> dict:
+    """The ``molecule`` cell on real molecule-like graphs: 128 graphs of 30
+    nodes from ``generators.molecule_graphs`` joined by ``batch_graphs``,
+    positions ``node_feat[:, :3]``, the edges padded with masked sentinel
+    edges to ``padded_edges``, the LUT ``build_wigner_lut(l_max)`` (32 x 64
+    bins), seeded graph-level targets."""
+    from repro_torch.configs.common import padded_edges
+    from repro_torch.graph import generators
+    from repro_torch.graph.batch import batch_graphs
+    from repro_torch.models.gnn.wigner import build_wigner_lut
+
+    p = shape.params
+    big, gids = batch_graphs(generators.molecule_graphs(p["batch"], p["n_nodes"], p["n_edges"],
+                                                        d_feat=p["d_feat"]))
+    src, dst = big.edge_list()
+    n, e = big.num_nodes, padded_edges(shape)
+    assert len(src) <= e and big.node_feat.shape[1] == cfg.d_in, (len(src), e)
+    pad = np.full(e - len(src), n, np.int32)
+    lut = build_wigner_lut(cfg.l_max)
+    assert lut.shape[0] == cfg.n_wigner_bins, lut.shape
+    rng = np.random.default_rng(0)
+    host = {"node_feat": big.node_feat, "pos": np.ascontiguousarray(big.node_feat[:, :3]),
+            "edge_src": np.concatenate([src, pad]), "edge_dst": np.concatenate([dst, pad]),
+            "edge_mask": np.arange(e) < len(src), "wigner_lut": lut, "graph_ids": gids,
+            "targets": rng.standard_normal((p["batch"], cfg.d_out)).astype(np.float32)}
+    return {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in host.items()}
+
+
+def gnn_run(card: str, arch: str, shape_name: str, inputs: dict, steps: int = 3) -> dict:
+    """One GNN at its published width and depth (``effective_model_cfg``),
+    fp32, weights from seed 0, ``steps`` profiled train steps."""
+    from repro_torch.configs import effective_model_cfg, get_config
+    from repro_torch.models.gnn import gnn_loss, init_gnn
+    from repro_torch.tree import tree_leaves
+
+    spec = get_config(arch)
+    cfg = effective_model_cfg(spec, spec.shapes[shape_name])
+    t0 = time.perf_counter()
+    params = init_gnn(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    recs, state = profiled_train(params, lambda p, b: (gnn_loss(p, cfg, b), {}),
+                                 itertools.repeat(inputs), steps)
+    del state, params
+    out = {"arch": arch, "shape": shape_name, "n_layers": cfg.n_layers,
+           "d_hidden": cfg.d_hidden, "d_in": cfg.d_in, "d_out": cfg.d_out,
+           "n_nodes": inputs["node_feat"].shape[0], "n_edges": inputs["edge_src"].shape[0],
+           "live_edges": int(inputs["edge_mask"].sum()), "params": n_params,
+           "graph_readout": cfg.graph_readout, "phase_s": time.perf_counter() - t0,
+           "losses": [r["loss"] for r in recs], "steps": recs, "card": card}
+    print(json.dumps({"gnn_run": out}), flush=True)
+    return out
+
+
+def retrieval_record(query: torch.Tensor, cand: torch.Tensor, launches: int, k: int = 100) -> dict:
+    """The ``topk_sim`` kernel at ``retrieval_cand`` against its plain
+    version (scores within 1e-5; the same id set, and every id at the plain
+    version's place where its score is clear of both neighbours by 1e-6)
+    and ``torch.topk(q @ emb.T, k)``, each timed; the bound from this run's
+    shapes."""
+    from repro_torch.kernels.topk_sim import ops
+    from repro_torch.models.recsys.wide_deep import retrieval_scores
+
+    s_k, i_k = retrieval_scores(query, cand, k)
+    s_p, i_p = ops.topk_similarity(query, cand, k + 1, use_kernel=False)
+    torch.cuda.synchronize()
+    err = (s_k - s_p[:, :k]).abs().max().item()
+    assert err <= 1e-5, f"retrieval scores off by {err}"
+    assert torch.equal(i_k.sort(1).values, i_p[:, :k].sort(1).values), "retrieval id sets differ"
+    sw = s_p[0]
+    gaps = sw[:-1] - sw[1:]
+    clear = torch.minimum(F.pad(gaps[:k - 1], (1, 0), value=1.0), gaps[:k]) > 1e-6
+    assert torch.equal(i_k[0, clear], i_p[0, :k][clear]), "retrieval ids differ"
+    q, (n, d) = query.shape[0], cand.shape
+    b_ms, b_by = bound(4 * (query.numel() + cand.numel()) + 8 * q * k, (2 * q * n * d, FP32_FLOPS))
+    run = lambda: retrieval_scores(query, cand, k)  # noqa: E731
+    library = lambda: torch.topk(query @ cand.T, k)  # noqa: E731
+    return {"name": "topk_sim_retrieval_cand", "route": "cuda",
+            "source": "src/repro_torch/csrc/topk_sim.cu",
+            "replaces": "src/repro/kernels/topk_sim/kernel.py:80", "launches": launches,
+            "max_abs_err": err, "ids_equal_plain": bool(torch.equal(i_k, i_p[:, :k])),
+            "ms": time_ms(run),
+            "plain_ms": time_ms(lambda: ops.topk_similarity(query, cand, k, use_kernel=False)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(library),
+            "profiler_ms": device_ms(run)[0], "library_profiler_ms": device_ms(library)[0],
+            "shape": f"Q={q} N={n} D={d} k={k}"}
+
+
+def wide_deep_run(card: str, steps: int = 3) -> tuple[dict, dict]:
+    """Wide & Deep at its published size (40 fields x 1M rows x 32, MLP
+    1024-512-256), fp32, weights from seed 0: ``steps`` profiled train
+    steps at ``train_batch`` (the launcher's pre-offset click batches),
+    forward logits at ``serve_p99`` and ``serve_bulk`` timed, and
+    ``retrieval_scores`` at ``retrieval_cand`` (the ``topk_sim`` kernel;
+    its launches counted over this path).  Returns (the run, the kernel
+    record)."""
+    from repro_torch.configs import get_config, input_specs
+    from repro_torch.kernels.topk_sim import kernel
+    from repro_torch.launch.train import _recsys_data
+    from repro_torch.models.recsys import wide_deep as wdm
+    from repro_torch.tree import tree_leaves
+
+    spec = get_config("wide-deep")
+    cfg = spec.model_cfg
+    shapes = {k: v.params for k, v in spec.shapes.items()}
+    t0 = time.perf_counter()
+    kernel.launches.reset()
+    params = wdm.init_wide_deep(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    recs, state = profiled_train(
+        params, lambda p, b: (wdm.wide_deep_loss(p, cfg, b["dense"], b["sparse_ids"],
+                                                 b["labels"]), {}),
+        _recsys_data(cfg, shapes["train_batch"]["batch"], device=DEV), steps)
+    del state
+    torch.cuda.empty_cache()
+    serve = {}
+    with torch.no_grad():
+        for name in ("serve_p99", "serve_bulk"):
+            b = next(_recsys_data(cfg, shapes[name]["batch"], seed=1, device=DEV))
+            fwd = lambda b=b: wdm.wide_deep_logits(params, cfg, b["dense"], b["sparse_ids"])  # noqa: E731
+            torch.cuda.reset_peak_memory_stats()
+            lg = fwd()
+            assert lg.shape == (shapes[name]["batch"],) and bool(torch.isfinite(lg).all())
+            serve[name] = {"batch": shapes[name]["batch"], "ms": time_ms(fwd, reps=3, batch=3),
+                           "device_ms": device_ms(fwd, calls=3)[0],
+                           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            del b, lg
+    cell = input_specs("wide-deep", "retrieval_cand", abstract=False, device=DEV)
+    k = shapes["retrieval_cand"]["k"]
+    s, i = wdm.retrieval_scores(cell["query"], cell["cand_emb"], k)
+    torch.cuda.synchronize()
+    launches = kernel.launches.count
+    assert launches == 1 and i.shape == (1, k) and bool(torch.isfinite(s).all()), launches
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    record = retrieval_record(cell["query"], cell["cand_emb"], launches, k)
+    out = {"arch": "wide-deep", "fields": cfg.n_sparse, "rows_per_field": cfg.rows_per_field,
+           "embed_dim": cfg.embed_dim, "mlp": list(cfg.mlp), "params": n_params,
+           "train_batch": shapes["train_batch"]["batch"], "losses": [r["loss"] for r in recs],
+           "steps": recs, "serve": serve, "phase_s": time.perf_counter() - t0,
+           "retrieval": {key: record[key] for key in ("shape", "ms", "plain_ms", "library_ms",
+                                                      "bound_ms", "launches", "ids_equal_plain")},
+           "card": card}
+    print(json.dumps({"recsys_run": out}), flush=True)
+    return out, record
+
+
+def zoo_cross_device_check(steps: int = 3) -> dict:
+    """The five archs' reduced fp32 configs, ``steps`` train steps on the
+    card and on the CPU from the same weights and the launcher's batch:
+    losses within ``rtol`` 1e-5 (``index_add`` on the card adds in atomic
+    order, so not bit for bit).  Then reduced-width retrieval (Q 2, N 5000,
+    D 16, k 100): the card's kernel ids equal the CPU's exactly."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import _gnn_inputs, _recsys_data
+    from repro_torch.models.gnn import gnn_loss, init_gnn
+    from repro_torch.models.recsys import wide_deep as wdm
+    from repro_torch.training import TrainLoop, make_train_step
+
+    out = {}
+    for arch in ZOO_ARCHS:
+        spec = get_config(arch)
+        cfg = spec.reduced_cfg
+        if spec.family == "recsys":
+            host = wdm.init_wide_deep(cfg, torch.Generator().manual_seed(0), device="cpu")
+            loss_fn = lambda p, b, cfg=cfg: (wdm.wide_deep_loss(  # noqa: E731
+                p, cfg, b["dense"], b["sparse_ids"], b["labels"]), {})
+            data = lambda d, cfg=cfg: _recsys_data(cfg, 32, device=d)  # noqa: E731
+        else:
+            host = init_gnn(cfg, torch.Generator().manual_seed(0), device="cpu")
+            loss_fn = lambda p, b, cfg=cfg: (gnn_loss(p, cfg, b), {})  # noqa: E731
+            data = lambda d, cfg=cfg: itertools.repeat(_gnn_inputs(cfg, device=d))  # noqa: E731
+        losses = {}
+        for dev in (DEV, "cpu"):
+            init, step = make_train_step(loss_fn, opt_config(steps))
+            loop = TrainLoop(step_fn=step, data_iter=data(dev), log_every=1,
+                             log_fn=lambda *_: None)
+            losses[dev] = [h[1] for h in loop.run(init(to_device(host, dev)), steps)[1]]
+        np.testing.assert_allclose(losses[DEV], losses["cpu"], rtol=1e-5)
+        out[arch] = losses
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((2, 16)).astype(np.float32))
+    cand = torch.from_numpy(rng.standard_normal((5000, 16)).astype(np.float32))
+    s_c, i_c = wdm.retrieval_scores(q.to(DEV), cand.to(DEV), 100)
+    s_h, i_h = wdm.retrieval_scores(q, cand, 100)
+    assert torch.equal(i_c.cpu(), i_h), "reduced retrieval ids differ between card and CPU"
+    out["retrieval_max_abs_err"] = (s_c.cpu() - s_h).abs().max().item()
+    assert out["retrieval_max_abs_err"] <= 1e-5, out
+    return out
+
+
+def zoo_phase(card: str) -> dict:
+    """Phase 11: the four GNNs and Wide & Deep at full width, then the
+    reduced card-vs-CPU gate.  Returns the ``topk_sim_retrieval_cand``
+    kernel record."""
+    from repro_torch.configs import effective_model_cfg, get_config, input_specs
+
+    t0 = time.perf_counter()
+    runs = []
+    lg_inputs = None
+    for arch, shape_name in GNN_RUNS:
+        spec = get_config(arch)
+        if shape_name == "molecule":
+            shape = spec.shapes[shape_name]
+            inputs = molecule_inputs(effective_model_cfg(spec, shape), shape, DEV)
+        elif arch == "graphcast":  # d_out is its input stack: its own targets
+            inputs = input_specs(arch, shape_name, abstract=False, device=DEV)
+        else:  # gin and meshgraphnet share the cell's arrays (d_in 608, d_out 41)
+            lg_inputs = lg_inputs or input_specs(arch, shape_name, abstract=False, device=DEV)
+            inputs = lg_inputs
+        runs.append(gnn_run(card, arch, shape_name, inputs))
+        del inputs
+        gc.collect()
+        torch.cuda.empty_cache()
+    del lg_inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    wd, record = wide_deep_run(card)
+    gate = zoo_cross_device_check()
+    print(json.dumps({"zoo_cross_device": gate}), flush=True)
+    print(json.dumps({"zoo_phase": {
+        "card": card, "phase_s": time.perf_counter() - t0,
+        "step_wall_ms": {r["arch"]: [s["wall_ms"] for s in r["steps"]] for r in runs + [wd]},
+        "step_device_ms": {r["arch"]: [s.get("device_ms") for s in r["steps"]]
+                           for r in runs + [wd]},
+        "peak_mem_gb": {r["arch"]: max(s["peak_mem_gb"] for s in r["steps"]) for r in runs + [wd]},
+        "wide_deep_serve_ms": {k: v["ms"] for k, v in wd["serve"].items()},
+        "retrieval_ms": [record["ms"], record["plain_ms"], record["library_ms"],
+                         record["bound_ms"]]}}), flush=True)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3509,6 +3850,9 @@ def main() -> int:
         "train_step_wall_ms": [d["wall_ms"] for d in gtrain["steps_detail"]],
         "deepseek_7b_tok_per_s": deepseek["tok_per_s"]}}), flush=True)
     records += flash_records + flash64 + [ell_record, ivf_record]
+    gc.collect()
+    torch.cuda.empty_cache()
+    records.append(zoo_phase(card))
 
     for rec in records:
         print(json.dumps({"kernel": rec["name"], "card": card, **rec}))

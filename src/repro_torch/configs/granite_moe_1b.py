@@ -2,7 +2,7 @@
 
 32 experts >= 16 model-mesh devices => expert parallelism ("expert" shard
 mode); on one card the mode changes no arithmetic."""
-from repro_torch.configs.common import ArchSpec
+from repro_torch.configs.common import ArchSpec, lm_shapes
 from repro_torch.models.transformer.config import MoEConfig, TransformerConfig
 
 CONFIG = ArchSpec(
@@ -14,6 +14,7 @@ CONFIG = ArchSpec(
         d_ff=0, vocab=49155,
         moe=MoEConfig(n_experts=32, top_k=8, d_ff=512, shard_mode="expert"),
     ),
+    shapes=lm_shapes(sliding_window=None),
     reduced_cfg=TransformerConfig(
         name="granite-moe-smoke",
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,

@@ -2,7 +2,7 @@
 
 8 experts < 16 model-mesh devices => "tp" MoE sharding in the reference
 (d_ff split over "model"); on one card the mode changes no arithmetic."""
-from repro_torch.configs.common import ArchSpec
+from repro_torch.configs.common import ArchSpec, lm_shapes
 from repro_torch.models.transformer.config import MoEConfig, TransformerConfig
 
 CONFIG = ArchSpec(
@@ -14,6 +14,7 @@ CONFIG = ArchSpec(
         d_ff=0, vocab=131072,
         moe=MoEConfig(n_experts=8, top_k=2, d_ff=32768, shard_mode="tp"),
     ),
+    shapes=lm_shapes(sliding_window=None),
     reduced_cfg=TransformerConfig(
         name="grok-1-smoke",
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,

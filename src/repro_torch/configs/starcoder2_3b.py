@@ -1,5 +1,5 @@
 """StarCoder2-3B [arXiv:2402.19173; hf] — GQA kv=2, RoPE, sliding-window 4096."""
-from repro_torch.configs.common import ArchSpec
+from repro_torch.configs.common import ArchSpec, lm_shapes
 from repro_torch.models.transformer.config import TransformerConfig
 
 CONFIG = ArchSpec(
@@ -10,6 +10,7 @@ CONFIG = ArchSpec(
         n_layers=30, d_model=3072, n_heads=24, n_kv_heads=2, d_head=128,
         d_ff=12288, vocab=49152, sliding_window=4096, rope_theta=1e5,
     ),
+    shapes=lm_shapes(sliding_window=4096),
     reduced_cfg=TransformerConfig(
         name="starcoder2-3b-smoke",
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,

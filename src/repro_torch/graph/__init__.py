@@ -1,1 +1,3 @@
-"""Graph substrate: host-side CSR (numpy) and the device-side ELL layout."""
+"""Graph substrate: host-side CSR (numpy) and its tooling (generators, the
+disjoint union ``batch.batch_graphs``, the fan-out ``sampler``), and the
+device-side ELL layout."""

@@ -1,1 +1,2 @@
-"""Model zoo of the port: the decoder-only LM transformer."""
+"""Model zoo of the port: the decoder-only LM transformer, the GNN zoo and
+Wide & Deep."""

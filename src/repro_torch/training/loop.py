@@ -42,7 +42,8 @@ def train_view(params: dict, grads: dict) -> dict:
     """``params`` with every leaf a grad-requiring view whose ``.grad`` is
     the matching view of ``grads``; a ``layers`` dict of stacked leaves
     (nested dicts such as ``moe`` included) becomes a list of per-layer
-    dicts (see the module docstring)."""
+    dicts (see the module docstring).  A ``layers`` list of per-layer dicts
+    (the GNNs') keeps its shape, each leaf its own view."""
     out = {}
     for key, val in params.items():
         if key == "layers" and isinstance(val, dict):

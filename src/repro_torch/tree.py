@@ -1,6 +1,9 @@
 """Nested-dict/list parameter trees: the two ``jax.tree`` operations the
-training code needs."""
+training code needs, and the reference's trees as tensors."""
 from __future__ import annotations
+
+import numpy as np
+import torch
 
 
 def tree_map(fn, tree, *rest):
@@ -18,3 +21,14 @@ def tree_leaves(tree) -> list:
     out: list = []
     tree_map(out.append, tree)
     return out
+
+
+def params_from_jax(params_np, device="cuda"):
+    """The reference's parameter pytree (numpy leaves; dicts and per-layer
+    lists kept) as fp32/int tensors on ``device``, so both compute one
+    function (the GNN zoo, Wide & Deep)."""
+    from repro_torch import resolve_device
+
+    dev = resolve_device(device)
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(dev), params_np)
+

@@ -1424,3 +1424,63 @@ def test_moe_train_steps_on_the_card_match_the_cpu(dev):
             state, m = step(state, next(data))
             got[d].append([float(m["loss"]), float(m["aux"])])
     np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-4)
+
+
+# ------------------------------------------------ GNN zoo and Wide & Deep ---
+def test_topk_sim_at_the_retrieval_shape_matches_plain(dev):
+    """Wide & Deep's ``retrieval_scores`` at Q 1, N 100,000, D 256, k 100:
+    the kernel's shared-memory lists (k > 32) against its plain version.
+    Scores within 1e-5; the same id set, each id at the plain version's
+    place wherever its score is clear of both neighbours by 1e-5."""
+    from repro_torch.kernels.topk_sim import kernel
+    from repro_torch.models.recsys.wide_deep import retrieval_scores
+
+    rng = np.random.default_rng(7)
+    cand, q = _unit(rng, (100_000, 256), dev), _unit(rng, (256,), dev)
+    before = kernel.launches.count
+    s_k, i_k = retrieval_scores(q, cand, 100)
+    torch.cuda.synchronize()
+    assert kernel.launches.count == before + 1 and kernel.last_plan.kk == 100
+    s_p, i_p = retrieval_scores(q.cpu(), cand.cpu(), 100)
+    assert (s_k.cpu() - s_p).abs().max().item() <= 1e-5
+    assert torch.equal(i_k.cpu().sort(1).values, i_p.sort(1).values)
+    gaps = s_p[0, :-1] - s_p[0, 1:]
+    clear = torch.minimum(torch.cat([torch.ones(1), gaps]), torch.cat([gaps, torch.ones(1)])) > 1e-5
+    assert torch.equal(i_k.cpu()[0, clear], i_p[0, clear])
+
+
+@pytest.mark.parametrize("arch", ["meshgraphnet", "equiformer-v2", "wide-deep"])
+def test_gnn_and_wide_deep_train_steps_on_the_card_match_the_cpu(dev, arch):
+    """Three ``make_train_step`` steps of the reduced fp32 config on the
+    card and the CPU from the same weights and batch (the launcher's):
+    losses within ``rtol`` 1e-5 (``index_add`` on the card adds in atomic
+    order, so not bit for bit)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import _gnn_inputs, _recsys_data
+    from repro_torch.training import AdamWConfig, make_train_step
+    from repro_torch.tree import tree_map
+
+    cfg = get_config(arch).reduced_cfg
+    if arch == "wide-deep":
+        from repro_torch.models.recsys import wide_deep as wdm
+
+        host = wdm.init_wide_deep(cfg, torch.Generator().manual_seed(0), device="cpu")
+        loss_fn = lambda p, b: (wdm.wide_deep_loss(  # noqa: E731
+            p, cfg, b["dense"], b["sparse_ids"], b["labels"]), {})
+        batch = lambda d: next(_recsys_data(cfg, 64, device=d))  # noqa: E731
+    else:
+        from repro_torch.models.gnn import gnn_loss, init_gnn
+
+        host = init_gnn(cfg, torch.Generator().manual_seed(0), device="cpu")
+        loss_fn = lambda p, b: (gnn_loss(p, cfg, b), {})  # noqa: E731
+        batch = lambda d: _gnn_inputs(cfg, device=d)  # noqa: E731
+    got = {}
+    for d in ("cuda", "cpu"):
+        init, step = make_train_step(loss_fn, AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=3))
+        state = init(tree_map(lambda t: t.clone().to(d), host))
+        b = batch(d)
+        got[d] = []
+        for _ in range(3):
+            state, m = step(state, b)
+            got[d].append(float(m["loss"]))
+    np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-5)

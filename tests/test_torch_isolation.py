@@ -38,7 +38,12 @@ assert not bad, bad
                                     "serving.engine", "serving.rag_engine",
                                     "serving.simulate", "serving.router", "graph.delta",
                                     "core.mutation", "models.transformer.moe",
-                                    "models.transformer.generate", "launch.serve"])
+                                    "models.transformer.generate", "launch.serve",
+                                    "models.gnn.config", "models.gnn.wigner",
+                                    "models.gnn.common", "models.gnn.simple",
+                                    "models.gnn.equiformer", "models.recsys.wide_deep",
+                                    "graph.batch", "graph.sampler", "configs.common",
+                                    "launch.train"])
 def test_module_alone_imports_neither_jax_nor_the_reference(module):
     """Each host-copied module (and the engines that use the drafter),
     imported on its own in a fresh interpreter, loads no JAX and nothing of
@@ -71,7 +76,10 @@ def _entry_points():
     from repro_torch.core.pipeline import RGLPipeline
     from repro_torch.graph import generators
     from repro_torch.graph.ell import csr_to_ell
+    from repro_torch import configs
     from repro_torch.launch import train
+    from repro_torch.models.gnn import init_gnn
+    from repro_torch.models.recsys import init_wide_deep
     from repro_torch.models.transformer import model as tm
     from repro_torch.models.transformer.config import TransformerConfig
     from repro_torch.serving.engine import ServeEngine
@@ -96,13 +104,21 @@ def _entry_points():
         "launch.train": lambda: train.main(["--arch", "starcoder2-3b", "--steps", "1"]),
         "MutableGraphStore.build": lambda: MutableGraphStore.build(g),
         "DeltaGraph": lambda: DeltaGraph(np.zeros((2, 1), np.int32), np.zeros((2, 1), bool), 2, 4),
+        "init_gnn": lambda: init_gnn(configs.get_config("gin-tu").reduced_cfg, torch.Generator()),
+        "init_wide_deep": lambda: init_wide_deep(configs.get_config("wide-deep").reduced_cfg,
+                                                 torch.Generator()),
+        "input_specs": lambda: configs.input_specs("gin-tu", "molecule", abstract=False),
+        "launch.train gnn": lambda: train.main(["--arch", "equiformer-v2", "--steps", "1"]),
+        "launch.train recsys": lambda: train.main(["--arch", "wide-deep", "--steps", "1"]),
     }
 
 
 @pytest.mark.parametrize("name", ["init_params", "init_cache", "init_paged_cache", "csr_to_ell",
                                   "BruteIndex.build", "IVFIndex.build", "ShardedIndex.build",
                                   "RGLPipeline", "ServeEngine", "paged ServeEngine",
-                                  "launch.train", "MutableGraphStore.build", "DeltaGraph"])
+                                  "launch.train", "MutableGraphStore.build", "DeltaGraph",
+                                  "init_gnn", "init_wide_deep", "input_specs",
+                                  "launch.train gnn", "launch.train recsys"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour of a machine without CUDA")
