@@ -20,9 +20,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 4b. naive oracle: 16 seeded queries of 4 seeds per strategy through the
    batched retrieval on the card (bfs 3 hops, dense 2, steiner 4, at most
    32 nodes; ppr 24 nodes, 8 iterations) against the pure-Python baselines
-   of ``repro_torch.core.naive`` on the host (the first 16, 16, 8 and 4
-   queries): bfs lists equal, ppr's top-12 sets equal up to float ties,
-   steiner and dense by their properties; both sides' seconds printed;
+   of ``repro_torch.core.naive`` on the host (the first 16, 16, 4 and 2
+   queries; steiner and ppr were 8 and 4 until phase 12 needed the time):
+   bfs lists equal, ppr's top-12 sets equal up to float ties, steiner and
+   dense by their properties; both sides' seconds printed;
 5. main path: ``repro_torch.launch.serve._serve_rag`` serves 8 distinct
    requests plus 4 repeats through ``RAGServeEngine`` with the full-width,
    full-depth StarCoder2-3B config in bf16 (random weights from a seed), the
@@ -116,10 +117,28 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    at Q 1 x N 1M x D 256, k 100 through the ``topk_sim`` kernel (its
    launch counted, its record ``topk_sim_retrieval_cand``); then the five
    reduced fp32 configs on the card against the CPU (``zoo_cross_device``)
-   and a ``zoo_phase`` summary.
+   and a ``zoo_phase`` summary;
+12. (after the Granite phase, over the main path's graph, ELL and brute
+   index) the RAG-LM trainer of ``examples/torch_train_rag_lm.py`` at its
+   card size (``100m``: 12 x 768, bf16, 105 M parameters; batch 8 x 192 as
+   2 micro-batches): 40 batches of ``rag_token_stream`` precomputed and
+   timed (one ``auto`` retrieval wave each, with the ``topk_sim``,
+   ``ws_mark`` and ``bfs_frontier`` launches asserted against the waves and
+   their dense re-runs), 40 steps of ``make_train_step`` + ``TrainLoop``
+   with ``AsyncCheckpointer`` (saves at 20 and 40, each save's stall and
+   background write timed), the newest checkpoint restored onto the card bit
+   for bit, ``run_with_restart`` over the same batches with a failure after
+   the first save (one restart, the final step count equal, losses within
+   ``rtol`` 1e-2), the torn-save probe (save, one in-place step at once,
+   close: the restored leaves equal the pre-update values), and the reduced
+   fp32 gate (the ``2m`` config on the example's 1,500-node graph, 3 steps
+   on the card and the CPU: batches equal, losses within 1e-5, checkpoints
+   crossing both ways bit for bit); one ``rag_lm_run`` line, a
+   ``rag_lm_cross_device`` line and a ``rag_lm_phase`` summary.
 
-The second-to-last line is ``{"kernels": [...]}`` (one record per kernel);
-the last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+A ``script_s`` line gives the script's own seconds.  Then come
+``{"kernels": [...]}`` (one record per kernel), the card's name and power
+limit, and last ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -133,6 +152,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -175,33 +195,42 @@ def time_ms(fn, reps: int = 5, batch: int = 10) -> float:
     return statistics.median(samples)
 
 
-# device_ms's traces: calls, traces taken and traces that came back empty
-PROFILER_TRACES = {"device_ms_calls": 0, "traces": 0, "empty_traces": 0}
+# traced's calls, the traces taken, those that came back empty, and the
+# most that came back empty in a row within one call
+PROFILER_TRACES = {"traced_calls": 0, "traces": 0, "empty_traces": 0, "most_empty_in_a_row": 0}
 
 
-def device_ms(fn, calls: int = 10, traces: int = 3) -> tuple[float, dict]:
-    """Time the card spends running ``fn``'s kernels, per call (the sum of
-    their durations in a ``torch.profiler`` trace, host gaps excluded), and
-    that time split by kernel name.  A trace that comes back without device
-    events (``torch.profiler`` sometimes records none) is taken again, up to
+def traced(fn, calls: int, traces: int = 8):
+    """A ``torch.profiler`` trace of ``calls`` back-to-back calls of ``fn``
+    that holds device events.  A trace that comes back without them
+    (``torch.profiler`` sometimes records none) is taken again, up to
     ``traces`` times; ``PROFILER_TRACES`` counts them."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    PROFILER_TRACES["device_ms_calls"] += 1
-    for _ in range(traces):
+    PROFILER_TRACES["traced_calls"] += 1
+    for empty in range(traces):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        by_name = kernel_ms_by_name(prof, calls)
         PROFILER_TRACES["traces"] += 1
-        if by_name:
-            return sum(by_name.values()), by_name
+        if kernel_ms_by_name(prof, calls):
+            return prof
         PROFILER_TRACES["empty_traces"] += 1
+        PROFILER_TRACES["most_empty_in_a_row"] = max(PROFILER_TRACES["most_empty_in_a_row"],
+                                                     empty + 1)
     raise RuntimeError(f"the profiler recorded no device time in {traces} traces")
+
+
+def device_ms(fn, calls: int = 10) -> tuple[float, dict]:
+    """Time the card spends running ``fn``'s kernels, per call (the sum of
+    their durations in a :func:`traced` trace, host gaps excluded), and
+    that time split by kernel name."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    by_name = kernel_ms_by_name(traced(fn, calls), calls)
+    return sum(by_name.values()), by_name
 
 
 def kernel_ms_by_name(prof, per: int) -> dict:
@@ -576,7 +605,7 @@ def strategy_phase(ell, seeds: torch.Tensor) -> None:
 # the 16 queries (steiner and ppr take seconds a query in Python)
 NAIVE_KW = {"bfs": dict(max_hops=3, max_nodes=32), "dense": dict(max_hops=2, max_nodes=32),
             "steiner": dict(max_hops=4, max_nodes=32), "ppr": dict(max_nodes=24, n_iter=8)}
-NAIVE_QUERIES = {"bfs": 16, "dense": 16, "steiner": 8, "ppr": 4}
+NAIVE_QUERIES = {"bfs": 16, "dense": 16, "steiner": 4, "ppr": 2}
 
 
 def naive_call(adj: dict, strategy: str, seeds: list) -> list:
@@ -712,14 +741,11 @@ def serve_counters() -> dict:
             "bfs_frontier": bfs_kernel.launches, "frontier_expand": fe_kernel.launches}
 
 
-def counted_serve(cfg, args: argparse.Namespace, q_ids: np.ndarray, params=None, stack=None,
-                  **clock):
-    """``_serve_rag`` with every kernel launch counted (counts set to 0 just
-    before, read just after) and each compact wave's overflowing rows
-    observed; ``stack`` reuses a built graph, pipeline and weights.
-    Returns (serve summary, launches, overflowing rows per wave)."""
+@contextlib.contextmanager
+def recorded_overflow():
+    """Yields a list to which each compact BFS wave run inside the block
+    appends its overflowing rows."""
     from repro_torch.core import graph_retrieval as gr
-    from repro_torch.launch.serve import _serve_rag
 
     overflow_rows: list = []
     compact_bfs = gr.COMPACT_STRATEGIES["bfs"]
@@ -730,30 +756,48 @@ def counted_serve(cfg, args: argparse.Namespace, q_ids: np.ndarray, params=None,
         return sub
 
     gr.COMPACT_STRATEGIES["bfs"] = recording
+    try:
+        yield overflow_rows
+    finally:
+        gr.COMPACT_STRATEGIES["bfs"] = compact_bfs
+
+
+def counted_serve(cfg, args: argparse.Namespace, q_ids: np.ndarray, params=None, stack=None,
+                  **clock):
+    """``_serve_rag`` with every kernel launch counted (counts set to 0 just
+    before, read just after) and each compact wave's overflowing rows
+    observed; ``stack`` reuses a built graph, pipeline and weights.
+    Returns (serve summary, launches, overflowing rows per wave)."""
+    from repro_torch.launch.serve import _serve_rag
+
     counters = serve_counters()
     gc.collect()  # an earlier serve's engine and graph may sit in reference cycles
-    try:
+    with recorded_overflow() as overflow_rows:
         torch.cuda.reset_peak_memory_stats()
         for counter in counters.values():
             counter.reset()
         out = _serve_rag(cfg, args, q_ids=q_ids, params=params, stack=stack, **clock)
         launches = {name: c.count for name, c in counters.items()}
-    finally:
-        gr.COMPACT_STRATEGIES["bfs"] = compact_bfs
     return out, launches, overflow_rows
 
 
 def check_serve_launches(out: dict, launches: dict, overflow_rows: list, index: str,
                          mode: str = "auto", topk_waves: int | None = None) -> int:
-    """The retrieval kernels ran on the serve: ``topk_sim`` (brute) or
-    ``ivf_scan`` once a wave, ``frontier_expand`` once a hop of every wave,
-    ``bfs_frontier`` once a hop of every dense re-run (under ``mode="dense"``:
-    no compact hop, ``bfs_frontier`` once a hop of every wave).
-    ``topk_waves`` is the waves that searched a ``BruteIndex`` where not all
-    did (a mutation store's active brute index scans without the kernel).
-    Returns the waves that ran dense hops."""
-    waves = out["retrieval_batches"]
-    hops = out["engine"].pipeline.config.max_hops
+    """The retrieval kernels ran on the serve as ``check_wave_launches``
+    says.  Returns the waves that ran dense hops."""
+    return check_wave_launches(out["retrieval_batches"], out["engine"].pipeline.config.max_hops,
+                               launches, overflow_rows, index, mode, topk_waves)
+
+
+def check_wave_launches(waves: int, hops: int, launches: dict, overflow_rows: list, index: str,
+                        mode: str = "auto", topk_waves: int | None = None) -> int:
+    """The retrieval kernels ran on ``waves`` waves of ``hops`` hops:
+    ``topk_sim`` (brute) or ``ivf_scan`` once a wave, ``frontier_expand``
+    once a hop of every wave, ``bfs_frontier`` once a hop of every dense
+    re-run (under ``mode="dense"``: no compact hop, ``bfs_frontier`` once a
+    hop of every wave).  ``topk_waves`` is the waves that searched a
+    ``BruteIndex`` where not all did (a mutation store's active brute index
+    scans without the kernel).  Returns the waves that ran dense hops."""
     if topk_waves is None:
         topk_waves = waves if index == "brute" else 0
     assert launches["topk_sim"] == topk_waves, (launches, waves, topk_waves)
@@ -3681,10 +3725,369 @@ def zoo_phase(card: str) -> dict:
     return record
 
 
+# ------------------------------------------------ the RAG-LM trainer (12) ----
+RAG_LM_STEPS = 40  # steps of the uninterrupted run (and of the restart run)
+RAG_LM_EVERY = 20  # checkpoint interval: saves at steps 20 and 40
+RAG_LM_CRASH_AT = 25  # the restart run fails here once, after its first save
+# bf16 losses of the restart run against the uninterrupted run's.  The
+# restored state is held bit for bit; the steps after it are held to a
+# tolerance because nothing promises that bf16 training (cuBLAS, the
+# embedding's accumulate) repeats its bits from run to run
+RAG_LM_LOSS_RTOL = 1e-2
+CKPT_DIR = Path(__file__).resolve().parent / "build"
+
+
+def rag_lm_example():
+    """``examples/torch_train_rag_lm.py``, whose functions phase 12 drives."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples" / "torch_train_rag_lm.py"
+    spec = importlib.util.spec_from_file_location("torch_train_rag_lm", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def host_copy(tree):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.detach().cpu().clone(), tree)
+
+
+def bits_equal(got, want) -> int:
+    """Every leaf of ``got`` equals ``want``'s bit for bit (dtype and shape
+    too); returns the leaves compared."""
+    from repro_torch.tree import tree_leaves
+
+    a, b = tree_leaves(got), tree_leaves(want)
+    assert len(a) == len(b), (len(a), len(b))
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and x.shape == y.shape, (x.dtype, y.dtype, x.shape, y.shape)
+        assert torch.equal(x.cpu(), y.cpu()), "a restored leaf differs from the saved state"
+    return len(a)
+
+
+def count_kernels(fn) -> int:
+    """Kernels one call of ``fn`` launches, from a :func:`traced` trace."""
+    prof = traced(fn, 1)
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not (getattr(e, "is_user_annotation", False) or e.name in ANNOTATIONS))
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def rag_lm_batches(twin, g, pipe, n: int, batch: int, seq: int) -> tuple[list, dict]:
+    """``n`` batches of the example's RAG token stream over ``pipe``, each
+    timed as the example's loop takes it (``next`` on the stream: one
+    retrieval wave on the card, then the host's linearization), with every
+    retrieval kernel launch counted (counts set to 0 just before, read just
+    after) and each compact wave's overflowing rows observed."""
+    wave_ms: list = []
+    retrieve = pipe.retrieve
+
+    def timed_retrieve(q, encoder=None):
+        t = time.perf_counter()
+        res = retrieve(q, encoder=encoder)
+        torch.cuda.synchronize()
+        wave_ms.append(1e3 * (time.perf_counter() - t))
+        return res
+
+    pipe.retrieve = timed_retrieve
+    stream = twin.token_stream(pipe, g, batch, seq)
+    counters = serve_counters()
+    batches, data_ms = [], []
+    try:
+        with recorded_overflow() as overflow_rows:
+            for c in counters.values():
+                c.reset()
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                batches.append(next(stream))
+                torch.cuda.synchronize()
+                data_ms.append(1e3 * (time.perf_counter() - t))
+            launches = {name: c.count for name, c in counters.items()}
+    finally:
+        del pipe.retrieve
+    assert len(wave_ms) == n, (len(wave_ms), n)
+    reruns = check_wave_launches(n, pipe.config.max_hops, launches, overflow_rows, "brute")
+    for b in batches:
+        assert b["tokens"].device.type == torch.device(DEV).type, b["tokens"].device
+        assert b["tokens"].shape == (batch, seq)
+        assert b["loss_mask"].any(), "a batch without a target token"
+    return batches, {"data_ms": data_ms, "wave_ms": wave_ms, "launches": launches, "waves": n,
+                     "overflow_rows_per_wave": overflow_rows, "dense_reruns": reruns}
+
+
+class TimedCheckpointer:
+    """An ``AsyncCheckpointer`` whose ``save`` calls are timed (the stall the
+    training loop sees)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.stall_ms: list = []
+
+    def save(self, step: int, tree) -> None:
+        t = time.perf_counter()
+        self.inner.save(step, tree)
+        self.stall_ms.append(1e3 * (time.perf_counter() - t))
+
+
+@contextlib.contextmanager
+def timed_writes(write_s: list):
+    """Times every ``save_checkpoint`` the checkpointer's worker runs."""
+    from repro_torch.checkpoint import checkpoint as ck
+
+    inner = ck.save_checkpoint
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        out = inner(*a, **kw)
+        write_s.append(time.perf_counter() - t)
+        return out
+
+    ck.save_checkpoint = timed
+    try:
+        yield
+    finally:
+        ck.save_checkpoint = inner
+
+
+def rag_lm_restart_run(step, batches, like, ckpt_dir: Path) -> dict:
+    """``run_with_restart`` over the uninterrupted run's batches, from the
+    same initial weights, with a failure injected at step ``RAG_LM_CRASH_AT``
+    (after the first checkpoint): synchronous saves every ``RAG_LM_EVERY``
+    steps, restore of the newest onto the card.  Returns the losses by step,
+    the restart count and the final state."""
+    from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
+    from repro_torch.distributed.fault import run_with_restart
+
+    losses: dict = {}
+    injected = {"done": False}
+    restored_from: list = []
+
+    def step_fn(state, i):
+        if i == RAG_LM_CRASH_AT and not injected["done"]:
+            injected["done"] = True
+            raise RuntimeError("injected failure")
+        state, m = step(state, batches[i])
+        losses[i] = float(m["loss"])
+        return state
+
+    def save_fn(state, i):
+        save_checkpoint(str(ckpt_dir), i, state)
+
+    def restore_fn():
+        s = latest_step(str(ckpt_dir))
+        restored_from.append(s)
+        state, _ = restore_checkpoint(str(ckpt_dir), like, step=s, device=DEV)
+        return state, s
+
+    state, restarts = run_with_restart(step_fn, save_fn, restore_fn, like,
+                                       n_steps=RAG_LM_STEPS, checkpoint_every=RAG_LM_EVERY)
+    return {"losses": [losses[i] for i in range(RAG_LM_STEPS)], "restarts": restarts,
+            "restored_from": restored_from, "state": state}
+
+
+def rag_lm_cross_device_check(twin, steps: int = 3) -> dict:
+    """The reduced fp32 gate: the ``2m`` config on the example's 1,500-node
+    graph, ``steps`` steps on the card and on the CPU from the same weights:
+    batches equal, losses within ``rtol`` 1e-5 (fp32, sums in another
+    order); a checkpoint saved on the card restores on the CPU with equal
+    bits, and one saved on the CPU on the card."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.core.indexing import BruteIndex
+    from repro_torch.graph import generators
+    from repro_torch.graph.ell import csr_to_ell
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.training import TrainLoop
+    from repro_torch.tree import tree_leaves
+
+    g = generators.citation_graph(1500, avg_deg=8, seed=0)
+    batches, losses, states = {}, {}, {}
+    host = None
+    for dev in (DEV, "cpu"):
+        ell = csr_to_ell(g, device=dev)
+        pipe = twin.build_pipeline(g, ell, BruteIndex.build(g.node_feat, device=dev), 192)
+        cfg = twin.model_config("2m", pipe.tokenizer.vocab.size)
+        if host is None:
+            host = tm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        data = twin.token_stream(pipe, g, 8, 192)
+        batches[dev] = [next(data) for _ in range(steps)]
+        init, step = twin.trainer(cfg, 200)
+        loop = TrainLoop(step_fn=step, data_iter=iter(batches[dev]), log_every=1,
+                         log_fn=lambda *_: None)
+        states[dev], hist = loop.run(init(to_device(host, dev)), steps)
+        losses[dev] = [h[1] for h in hist]
+    for a, b in zip(batches[DEV], batches["cpu"]):
+        assert torch.equal(a["tokens"].cpu(), b["tokens"]), "card and CPU batches differ"
+        assert torch.equal(a["loss_mask"].cpu(), b["loss_mask"]), "card and CPU masks differ"
+    np.testing.assert_allclose(losses[DEV], losses["cpu"], rtol=1e-5)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses[DEV], losses["cpu"]))
+    with tempfile.TemporaryDirectory(dir=CKPT_DIR) as tmp:
+        save_checkpoint(f"{tmp}/card", steps, states[DEV])
+        save_checkpoint(f"{tmp}/cpu", steps, states["cpu"])
+        on_cpu, _ = restore_checkpoint(f"{tmp}/card", states["cpu"])
+        leaves = bits_equal(on_cpu, host_copy(states[DEV]))
+        assert all(t.device.type == "cpu" for t in tree_leaves(on_cpu))
+        on_card, _ = restore_checkpoint(f"{tmp}/cpu", states[DEV])
+        assert all(t.device.type == torch.device(DEV).type for t in tree_leaves(on_card))
+        bits_equal(on_card, states["cpu"])
+    return {"config": cfg.name, "nodes": g.num_nodes, "steps": steps, "losses": losses,
+            "max_rel_loss_diff": rel, "batches_equal": True,
+            "checkpoints_bit_equal_both_ways": True, "leaves": leaves}
+
+
+def rag_lm_phase(card: str, stack) -> dict:
+    """Phase 12: the example's RAG-LM trainer at its card size (``100m``,
+    bf16, batch 8 x 192) over the main path's graph, ELL and brute index:
+    40 precomputed stream batches (retrieval launches asserted), 40 steps
+    through ``TrainLoop`` with ``AsyncCheckpointer`` (saves at 20 and 40),
+    the newest checkpoint restored bit for bit, ``run_with_restart`` with a
+    failure after the first save, the torn-save probe, and the reduced fp32
+    gate.  One ``rag_lm_run`` line and a ``rag_lm_phase`` summary."""
+    from repro_torch.checkpoint import AsyncCheckpointer, latest_step, restore_checkpoint
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.training import TrainLoop
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    twin = rag_lm_example()
+    batch, seq = 8, 192  # the example's defaults
+    pipe0 = stack["pipe"]
+    pipe = twin.build_pipeline(stack["g"], pipe0.graph, pipe0.index, seq)
+    batches, data = rag_lm_batches(twin, stack["g"], pipe, RAG_LM_STEPS, batch, seq)
+    cfg = twin.model_config("100m", pipe.tokenizer.vocab.size)
+    params = tm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    init_host = host_copy(params)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    init_state, step = twin.trainer(cfg, RAG_LM_STEPS)
+    state = init_state(params)
+    walls, losses = [], []
+
+    def timed_step(state, b):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        walls.append(1e3 * (time.perf_counter() - t))
+        return state, m
+
+    gc.collect()
+    torch.cuda.synchronize()
+    CKPT_DIR.mkdir(exist_ok=True)
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    write_s: list = []
+    with tempfile.TemporaryDirectory(dir=CKPT_DIR) as tmp:
+        tmp = Path(tmp)
+        ckpt = TimedCheckpointer(AsyncCheckpointer(str(tmp / "run"), keep=2))
+        loop = TrainLoop(step_fn=timed_step, data_iter=iter(batches), checkpointer=ckpt,
+                         checkpoint_every=RAG_LM_EVERY, log_every=10)
+        with timed_writes(write_s):
+            state, history = loop.run(state, RAG_LM_STEPS)
+            ckpt.inner.close()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        assert [h[0] for h in history] == [10, 20, 30, 40]
+        assert len(ckpt.stall_ms) == 2 and len(write_s) == 2, (ckpt.stall_ms, write_s)
+        assert latest_step(str(tmp / "run")) == RAG_LM_STEPS
+        saved = sorted(p.name for p in (tmp / "run").iterdir())
+        assert saved == ["step_00000020", "step_00000040"], saved
+        ckpt_bytes = dir_bytes(tmp / "run" / "step_00000040")
+        assert all(np.isfinite(losses)), losses
+        # (a) the newest checkpoint onto the card, bit for bit
+        want = host_copy(state)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got, st = restore_checkpoint(str(tmp / "run"), state, device=DEV)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        assert st == RAG_LM_STEPS
+        leaves = bits_equal(got, want)
+        assert got["params"]["embed"].dtype == torch.bfloat16
+        assert got["params"]["embed"].device.type == torch.device(DEV).type
+        assert got["opt"]["m"]["embed"].dtype == torch.float32
+        del got
+        # (b) crash-restart over the same batches from the same weights
+        like = init_state(to_device(init_host, DEV))
+        rr = rag_lm_restart_run(step, batches, like, tmp / "restart")
+        del like
+        assert rr["restarts"] == 1 and rr["restored_from"] == [RAG_LM_EVERY], rr["restored_from"]
+        assert int(rr["state"]["opt"]["step"]) == int(state["opt"]["step"]) == RAG_LM_STEPS
+        np.testing.assert_allclose(rr["losses"], losses, rtol=RAG_LM_LOSS_RTOL)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(rr["losses"], losses))
+        same_params = all(torch.equal(a, b) for a, b in zip(tree_leaves(rr["state"]["params"]),
+                                                             tree_leaves(state["params"])))
+        del rr["state"]
+        # (c) the torn-save probe: save, one in-place step at once, close
+        probe = AsyncCheckpointer(str(tmp / "probe"), keep=1)
+        probe.save(RAG_LM_STEPS + 1, state)
+        state, _ = step(state, batches[0])
+        probe.close()
+        torch.cuda.synchronize()
+        restored, _ = restore_checkpoint(str(tmp / "probe"), state, device=DEV)
+        bits_equal(restored, want)
+        assert not torch.equal(state["params"]["embed"].cpu(), want["params"]["embed"]), \
+            "the probe's update changed nothing"
+        del restored, want
+    gc.collect()
+    # the step's device time and kernel count, after the checks (the state
+    # is not compared again)
+    step_dev, by_name = device_ms(lambda: step(state, batches[1]), calls=2)
+    step_kernels = count_kernels(lambda: step(state, batches[1]))
+    del state, params
+    gate = rag_lm_cross_device_check(twin)
+    print(json.dumps({"rag_lm_cross_device": gate}), flush=True)
+    warm = walls[1:]  # the first step builds cuBLAS handles and plans
+    step_ms = statistics.median(warm)
+    data_ms = statistics.median(data["data_ms"][1:])
+    tokens = batch * seq
+    rec = {
+        "rag_lm_run": "examples/torch_train_rag_lm.py --model_scale 100m (bf16), batch 8 x 192, "
+                      f"{N_NODES}-node graph, bfs auto, brute index", "card": card,
+        "params": n_params, "checkpoint_bytes": ckpt_bytes, "leaves": leaves,
+        "step_wall_ms": {"median": step_ms, "first": walls[0], "all": walls},
+        "step_device_ms": step_dev, "step_kernels": step_kernels,
+        "step_top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6]),
+        "data_ms": {"median": data_ms, "first": data["data_ms"][0], "all": data["data_ms"]},
+        "retrieval_wave_ms_median": statistics.median(data["wave_ms"][1:]),
+        "linearize_ms_median": statistics.median(
+            [d - w for d, w in zip(data["data_ms"][1:], data["wave_ms"][1:])]),
+        "data_share": data_ms / (data_ms + step_ms),
+        "tok_per_s_step": tokens / step_ms * 1e3,
+        "tok_per_s_with_data": tokens / (step_ms + data_ms) * 1e3,
+        "save_stall_ms": ckpt.stall_ms, "save_write_s": write_s, "restore_s": restore_s,
+        "peak_gb": peak_gb, "peak_gb_above_phase_start": peak_gb - base_gb,
+        "launches": {k: data["launches"][k] for k in ("topk_sim", "frontier_expand",
+                                                      "bfs_frontier")},
+        "waves": data["waves"], "dense_reruns": data["dense_reruns"],
+        "losses": losses, "restart": {"restarts": rr["restarts"],
+                                      "restored_from": rr["restored_from"],
+                                      "crash_at": RAG_LM_CRASH_AT, "loss_rtol": RAG_LM_LOSS_RTOL,
+                                      "max_rel_loss_diff": loss_rel,
+                                      "final_params_bit_equal": same_params},
+        "torn_save_probe": "restored leaves equal the pre-update values"}
+    print(json.dumps(rec), flush=True)
+    summary = {"card": card, "phase_s": time.perf_counter() - t0, "params": n_params,
+               "step_wall_ms": step_ms, "step_device_ms": step_dev,
+               "step_kernels": step_kernels, "data_ms": data_ms,
+               "data_share": rec["data_share"], "save_stall_ms": ckpt.stall_ms,
+               "save_write_s": write_s, "restore_s": restore_s, "launches": rec["launches"],
+               "loss_first_last": [losses[0], losses[-1]],
+               "gate_max_rel_loss_diff": gate["max_rel_loss_diff"]}
+    print(json.dumps({"rag_lm_phase": summary}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    t_script = time.perf_counter()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import get_config
     from repro_torch.graph import generators
@@ -3749,6 +4152,7 @@ def main() -> int:
     stack["frozen_tokens"] = brute_tokens
     mutation_phase(card, spec.model_cfg, stack)
     granite = granite_phase(card, stack)
+    rag_lm_phase(card, stack)
     del params, stack
     print(json.dumps({"main_path": "the same with the IVF index (64 lists, nprobe 4)",
                       "card": card, **mp_ivf}), flush=True)
@@ -3857,6 +4261,7 @@ def main() -> int:
     for rec in records:
         print(json.dumps({"kernel": rec["name"], "card": card, **rec}))
     print(json.dumps({"profiler_traces": PROFILER_TRACES}))
+    print(json.dumps({"script_s": time.perf_counter() - t_script, "card": card}))
     print(json.dumps({"kernels": records}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,6 @@
-"""Nested-dict/list parameter trees: the two ``jax.tree`` operations the
-training code needs, and the reference's trees as tensors."""
+"""Nested-dict/list parameter trees: the ``jax.tree`` operations the
+training, checkpoint and sharding code needs, and the reference's trees as
+tensors."""
 from __future__ import annotations
 
 import numpy as np
@@ -14,6 +15,18 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn, tree, prefix: tuple = ()):
+    """``fn(path, leaf)`` over the leaves of ``tree``, ``path`` being the
+    leaf's dict keys and list indices joined by ``/`` (as the reference's
+    checkpoint and sharding code name leaves)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, prefix + (str(k),)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, prefix + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn("/".join(prefix), tree)
 
 
 def tree_leaves(tree) -> list:

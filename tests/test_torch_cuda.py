@@ -6,7 +6,8 @@ ELL aggregation over odd widths and sentinel ids; the IVF scan over ragged,
 narrow and tied candidate sets; both scan kernels' variants, merges and
 workspace), the index kinds and an IVF serve on the card against the CPU,
 the paged arena, int8 KV and speculative decode on the card against the
-CPU and against one-token decode.  Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere.
+CPU and against one-token decode, and checkpoints and the RAG token stream
+of CUDA tensors.  Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere.
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -1484,3 +1485,99 @@ def test_gnn_and_wide_deep_train_steps_on_the_card_match_the_cpu(dev, arch):
             state, m = step(state, b)
             got[d].append(float(m["loss"]))
     np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-5)
+
+
+# ------------------------------------------- checkpoints and the RAG stream ---
+def _ckpt_state(dev):
+    """A small training state on ``dev``: bf16 and fp32 parameters, fp32
+    moments after one AdamW step, the int32 step counter."""
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update
+
+    gen = torch.Generator().manual_seed(4)
+    params = {"w": torch.randn((64, 48), generator=gen).to(torch.bfloat16).to(dev),
+              "layers": [{"b": torch.randn(48, generator=gen).to(dev)}]}
+    cfg = AdamWConfig(lr=0.05, warmup_steps=1)
+    state = {"params": params, "opt": adamw_init(params, cfg)}
+    grads = {"w": torch.ones_like(params["w"]), "layers": [{"b": torch.ones_like(params["layers"][0]["b"])}]}
+    adamw_update(grads, state["opt"], state["params"], cfg)
+    return state, grads, cfg
+
+
+def _bitwise_equal(a, b):
+    from repro_torch.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert torch.equal(x.cpu(), y.cpu())
+
+
+def test_cuda_state_survives_save_and_restore_bit_for_bit(dev, tmp_path):
+    """A CUDA state saved and restored onto the card (its leaves' device),
+    onto the CPU (a named device), and a CPU copy's checkpoint restored onto
+    the card: equal bits, bf16 included."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.tree import tree_map
+
+    state, _, _ = _ckpt_state(dev)
+    save_checkpoint(str(tmp_path / "card"), 3, state)
+    back, step = restore_checkpoint(str(tmp_path / "card"), state)
+    assert step == 3 and back["params"]["w"].is_cuda
+    _bitwise_equal(back, state)
+    host, _ = restore_checkpoint(str(tmp_path / "card"), state, device="cpu")
+    assert not host["params"]["w"].is_cuda
+    _bitwise_equal(host, state)
+    save_checkpoint(str(tmp_path / "host"), 3, tree_map(lambda t: t.cpu(), state))
+    onto, _ = restore_checkpoint(str(tmp_path / "host"), host, device=dev)
+    assert onto["opt"]["m"]["w"].is_cuda
+    _bitwise_equal(onto, state)
+
+
+def test_async_save_then_in_place_adamw_cannot_tear_on_the_card(dev, tmp_path):
+    """``AsyncCheckpointer.save`` returns with its device-to-host copy done:
+    an in-place ``adamw_update`` queued at once does not reach the
+    checkpoint.  A long kernel runs first on the stream, so a save that
+    returned before its copies landed would hand the writer thread buffers
+    not yet filled."""
+    from repro_torch.checkpoint import AsyncCheckpointer, restore_checkpoint
+    from repro_torch.training.optimizer import adamw_update
+    from repro_torch.tree import tree_map
+
+    state, grads, cfg = _ckpt_state(dev)
+    before = tree_map(lambda t: t.cpu().clone(), state)
+    ac = AsyncCheckpointer(str(tmp_path), keep=1)
+    torch.cuda._sleep(50_000_000)  # the copies queue behind ~25 ms of work
+    ac.save(1, state)
+    adamw_update(grads, state["opt"], state["params"], cfg)
+    ac.close()
+    got, _ = restore_checkpoint(str(tmp_path), state, device="cpu")
+    _bitwise_equal(got, before)
+    assert not torch.equal(state["params"]["w"].cpu(), before["params"]["w"])
+
+
+def test_rag_token_stream_on_the_card_equals_the_cpu(dev):
+    """The example's pipeline on the card and on the CPU: the first three
+    batches' tokens and loss masks are equal, and land on the card."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.core.indexing import BruteIndex
+    from repro_torch.graph import generators
+    from repro_torch.graph.ell import csr_to_ell
+
+    path = Path(__file__).resolve().parents[1] / "examples" / "torch_train_rag_lm.py"
+    spec = importlib.util.spec_from_file_location("_example_torch_train_rag_lm", path)
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    g = generators.citation_graph(1500, avg_deg=8, seed=0)
+    streams = {}
+    for d in (dev, torch.device("cpu")):
+        ell = csr_to_ell(g, device=d)
+        pipe = twin.build_pipeline(g, ell, BruteIndex.build(g.node_feat, device=d), 192)
+        streams[d.type] = twin.token_stream(pipe, g, 8, 192)
+    for _ in range(3):
+        a, b = next(streams["cuda"]), next(streams["cpu"])
+        assert a["tokens"].is_cuda and a["loss_mask"].is_cuda
+        assert torch.equal(a["tokens"].cpu(), b["tokens"])
+        assert torch.equal(a["loss_mask"].cpu(), b["loss_mask"])
