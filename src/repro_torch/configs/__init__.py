@@ -60,9 +60,10 @@ def effective_model_cfg(spec: ArchSpec, shape: ShapeSpec):
 
 
 def input_specs(arch_id: str, shape_name: str, *, abstract: bool = True, device="cuda"):
-    """Every model input of the given cell as seeded tensors on ``device``
-    (``abstract=False``: the reference's ``concretize`` arrays).  The
-    abstract form is the dry run's and raises (ROADMAP Queue 1 item 16)."""
+    """Every model input of the given cell: meta-device tensors of the
+    reference's shapes and dtypes (``abstract=True``, the dry run's), or
+    seeded tensors on ``device`` (``abstract=False``: the reference's
+    ``concretize`` arrays)."""
     spec = get_config(arch_id)
     shape = spec.shapes[shape_name]
     if shape.kind == "skip":

@@ -9,8 +9,10 @@ visits dict keys sorted), bools all ones, integer leaves from
 ``rng.integers`` (edge ids and graph ids below ``n_nodes``, tokens and
 sparse ids below ``vocab``), every float leaf (``node_mask`` and
 ``wigner_lut`` included) ``normal * 0.1``.  One seed gives the reference's
-arrays.  The abstract (shape-only) builders are the dry run's, which is not
-ported (ROADMAP Queue 1 item 16, ``launch/dryrun.py``).
+arrays.  ``abstract=True`` (the default, as in the reference) gives the same
+leaves as tensors on the ``meta`` device instead, the twin of
+``jax.ShapeDtypeStruct``: shapes and dtypes, nothing allocated (the dry
+run's inputs).
 """
 from __future__ import annotations
 
@@ -126,15 +128,13 @@ RECSYS_SHAPES = {
 # ---------------------------------------------------------------------------
 # input builders: the (shape, dtype) tree of a cell, filled by concretize
 # ---------------------------------------------------------------------------
-def _abstract(abstract: bool) -> None:
-    if abstract:
-        raise NotImplementedError(
-            "abstract (shape-only) inputs are the dry run's, not ported yet: ROADMAP Queue 1 "
-            "item 16 (launch/dryrun.py); pass abstract=False for arrays")
+def _meta(tree: dict) -> dict:
+    """Each ``Leaf`` as an empty tensor on the meta device."""
+    return {k: torch.empty(x.shape, dtype=getattr(torch, x.dtype), device="meta")
+            for k, x in tree.items()}
 
 
 def lm_inputs(shape: ShapeSpec, cfg, *, abstract: bool = True, device="cuda"):
-    _abstract(abstract)
     p = shape.params
     if shape.kind == "train":
         b, s = p["global_batch"], p["seq_len"]
@@ -159,11 +159,12 @@ def lm_inputs(shape: ShapeSpec, cfg, *, abstract: bool = True, device="cuda"):
             out["v_scale"] = Leaf((L, b, sc, kv), "bfloat16")
     else:
         raise ValueError(shape.kind)
+    if abstract:
+        return _meta(out)
     return concretize(out, np.random.default_rng(0), vocab=cfg.vocab, device=device)
 
 
 def gnn_inputs(shape: ShapeSpec, cfg, *, abstract: bool = True, device="cuda"):
-    _abstract(abstract)
     p = shape.params
     if shape.name == "minibatch_lg":
         n = p["block_nodes"]
@@ -187,11 +188,12 @@ def gnn_inputs(shape: ShapeSpec, cfg, *, abstract: bool = True, device="cuda"):
     else:
         out["targets"] = Leaf((n, cfg.d_out), "float32")
         out["node_mask"] = Leaf((n,), "float32")
+    if abstract:
+        return _meta(out)
     return concretize(out, np.random.default_rng(0), n_nodes=n, device=device)
 
 
 def recsys_inputs(shape: ShapeSpec, cfg, *, abstract: bool = True, device="cuda"):
-    _abstract(abstract)
     p = shape.params
     if shape.kind == "retrieval":
         out = {
@@ -206,6 +208,8 @@ def recsys_inputs(shape: ShapeSpec, cfg, *, abstract: bool = True, device="cuda"
         }
         if shape.kind == "train":
             out["labels"] = Leaf((b,), "float32")
+    if abstract:
+        return _meta(out)
     return concretize(out, np.random.default_rng(0), vocab=cfg.rows_per_field, device=device)
 
 

@@ -8,7 +8,8 @@ dimension — None (replicated), a mesh axis name, or a tuple of names — and
 equals ``tuple()`` of the reference's ``PartitionSpec``, whose canonical form
 ``_spec`` copies (a one-name tuple becomes the name, an empty one None);
 ``()`` replicates the whole leaf.  The functions that read a mesh take any object with
-``axis_names`` and ``shape`` (a dict of axis sizes), such as ``MeshShape``.
+``axis_names`` and ``shape`` (a dict of axis sizes), such as ``MeshShape``;
+``named`` turns a placement into DTensor placements on a ``DeviceMesh``.
 
 LM policy (dense): 2D weight sharding — FSDP over "data" on the contracting
 dim + Megatron TP over "model" on heads/d_ff; activations sharded batch x
@@ -42,6 +43,11 @@ class MeshShape:
     @property
     def shape(self) -> dict:
         return dict(zip(self.axis_names, self.sizes))
+
+    @classmethod
+    def of(cls, mesh) -> "MeshShape":
+        """The names and sizes of a ``torch.distributed`` ``DeviceMesh``."""
+        return cls(tuple(mesh.mesh_dim_names), tuple(mesh.shape))
 
 
 SINGLE_POD = MeshShape(("data", "model"), (16, 16))
@@ -206,3 +212,29 @@ def recsys_input_specs(mesh) -> dict:
         "query": (),
         "cand_emb": ("model", None),
     }
+
+
+def named(mesh, spec) -> tuple:
+    """``spec`` (a placement tuple) as DTensor placements on ``mesh`` (a
+    ``DeviceMesh``), one per mesh dimension: a mesh axis named on tensor dim
+    ``d`` is ``Shard(d)``, every other axis (and any axis of size 1, where
+    the two agree) ``Replicate()``.  A tuple of names on one dim shards it
+    over each, the first name outermost, as ``PartitionSpec`` orders them
+    (DTensor nests shards of one dim in mesh order, so the names must come
+    in that order)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx) or any(out[i] != Replicate() for i in idx):
+            raise ValueError(f"placement {spec} on mesh axes {names}: each axis once, "
+                             "in mesh order within a dim")
+        for i in idx:
+            if mesh.size(i) > 1:
+                out[i] = Shard(d)
+    return tuple(out)

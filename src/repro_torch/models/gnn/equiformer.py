@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.constraints import shard_hint, zeros_hint
 from repro_torch.models.gnn.common import apply_mlp, at_add, at_max, init_mlp, take
 from repro_torch.models.gnn.config import GNNConfig
 from repro_torch.models.gnn.wigner import m_index_sets
@@ -172,8 +173,9 @@ def _chunk_partial(lg, sp, mx, sm, xp, invp, lp, g: _Edges) -> torch.Tensor:
     chunk = lg.shape[0]
     s_ = torch.clamp(g.src[sp], max=n)
     seg = torch.clamp(g.dst[sp], max=n)
-    D = g.lut.index_select(0, g.ebin[sp])  # (chunk, K, K)
-    xr = torch.bmm(D, take(xp, s_))
+    D = shard_hint(g.lut.index_select(0, g.ebin[sp]), "dp", None, None)  # (chunk, K, K)
+    xs = shard_hint(take(xp, s_), "dp", None, None)
+    xr = torch.bmm(D, xs)
     xm = {m: tuple(xr.index_select(1, rows) for rows in g.mrows[m]) for m in g.msets}
     rad_in = torch.cat([g.rbf[sp], take(invp, s_)], -1)
     rmod = apply_mlp(lp["radial"], rad_in)  # (chunk, m_max+1)
@@ -183,13 +185,14 @@ def _chunk_partial(lg, sp, mx, sm, xp, invp, lp, g: _Edges) -> torch.Tensor:
     yb = torch.bmm(D.transpose(1, 2), y)  # rotate back (D^T)
     alpha = torch.exp(lg - take(mx, seg)) / torch.clamp(take(sm, seg), min=1e-20)
     yh = yb.reshape(chunk, K, H, C // H) * alpha[:, None, :, None]
-    return at_add(xp.new_zeros((n + 1, K, C)), seg, yh.reshape(chunk, K, C))
+    part = at_add(xp.new_zeros((n + 1, K, C)), seg, yh.reshape(chunk, K, C))
+    return shard_hint(part, None, None, "model")
 
 
 def _layer(x: torch.Tensor, lp: dict, g: _Edges) -> torch.Tensor:
     n, C, K, H = g.n, g.C, g.K, g.H
     inv_ch = x[:, 0, :]  # (N, C) invariant channels
-    xp = torch.cat([x, x.new_zeros((1, K, C))], 0)
+    xp = shard_hint(torch.cat([x, x.new_zeros((1, K, C))], 0), None, None, "model")
     invp = torch.cat([inv_ch, inv_ch.new_zeros((1, C))], 0)
 
     # ---- pass A: attention logits (invariant-only, no rotation needed)
@@ -214,11 +217,11 @@ def _layer(x: torch.Tensor, lp: dict, g: _Edges) -> torch.Tensor:
                              use_reentrant=False)
 
     # ---- pass B: rotated SO(2) messages, weighted scatter
-    acc = x.new_zeros((n + 1, K, C))
+    acc = zeros_hint((n + 1, K, C), None, None, "model", dtype=x.dtype, device=x.device)
     for sp, lg in zip(g.spans, all_lg):
         acc = acc + checkpoint(_chunk_partial, lg, sp, mx, sm, xp, invp, lp, g,
                                use_reentrant=False)
-    h = _equi_rmsnorm(x + acc[:n], lp["ln_scale"], g.l_max)
+    h = shard_hint(_equi_rmsnorm(x + acc[:n], lp["ln_scale"], g.l_max), None, None, "model")
 
     # gated FFN: l=0 through MLP; l>0 scaled by sigmoid gates
     gates = apply_mlp(lp["gate"], h[:, 0, :]).reshape(n, g.l_max + 1, C)
@@ -259,7 +262,8 @@ def apply_equiformer(params: dict, cfg: GNNConfig, inputs: dict, *,
 
     # initial irreps: invariant embedding in l=0, zeros elsewhere
     h0 = apply_mlp(params["embed"], node_feat)  # (N, C)
-    x = torch.cat([h0[:, None], h0.new_zeros((n, K - 1, C))], 1)
+    # irreps features are the dominant state (N, K, C): channels over "model"
+    x = shard_hint(torch.cat([h0[:, None], h0.new_zeros((n, K - 1, C))], 1), None, None, "model")
     for lp in params["layers"]:
         x = checkpoint(_layer, x, lp, g, use_reentrant=False)
     return apply_mlp(params["out"], x[:, 0, :])

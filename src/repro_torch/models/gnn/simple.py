@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.constraints import shard_hint
 from repro_torch.models.gnn.common import (
     apply_mlp, gather_src_dst, init_mlp, scatter_mean, scatter_sum,
 )
@@ -47,8 +48,10 @@ def apply_gin(params: dict, cfg: GNNConfig, inputs: dict) -> torch.Tensor:
 
     def one_layer(h, lp):
         hs, _ = gather_src_dst(h, src, dst, n)
+        hs = shard_hint(hs, "dp", "model")
         agg = _agg(cfg)(hs, dst, n, em)
-        return apply_mlp(lp["mlp"], (1.0 + lp["eps"]) * h + agg, layernorm=True)
+        h = apply_mlp(lp["mlp"], (1.0 + lp["eps"]) * h + agg, layernorm=True)
+        return shard_hint(h, None, "model")
 
     for lp in params["layers"]:
         h = checkpoint(one_layer, h, lp, use_reentrant=False)
@@ -86,12 +89,19 @@ def apply_mgn(params: dict, cfg: GNNConfig, inputs: dict) -> torch.Tensor:
     em = inputs.get("edge_mask")
     h = apply_mlp(params["enc_node"], inputs["node_feat"], layernorm=True)
     e = apply_mlp(params["enc_edge"], _edge_geometry(inputs, n), layernorm=True)
+    h = shard_hint(h, None, "model")
+    # edge state over (edges, features): keeps the concat and the edge MLP
+    # shard-local (feature-replicated e made GSPMD all-gather (E, d) a layer
+    # in the reference)
+    e = shard_hint(e, "dp", "model")
 
     def one_layer(h, e, lp):
         hs, hd = gather_src_dst(h, src, dst, n)
         e = e + apply_mlp(lp["edge"], torch.cat([e, hs, hd], -1), layernorm=True)
+        e = shard_hint(e, "dp", "model")
         agg = _agg(cfg)(e, dst, n, em)
         h = h + apply_mlp(lp["node"], torch.cat([h, agg], -1), layernorm=True)
+        h = shard_hint(h, None, "model")
         return h, e
 
     def block_fn(h, e, blk):

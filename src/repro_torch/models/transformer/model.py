@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.distributed.constraints import shard_hint, zeros_hint
 from repro_torch.models.transformer import attention as attn
 from repro_torch.models.transformer.config import TransformerConfig
 from repro_torch.models.transformer.moe import init_moe_params, moe_ffn
@@ -263,8 +264,11 @@ def prefill(params, tokens: torch.Tensor, true_len: torch.Tensor,
     positions = torch.arange(s, dtype=torch.int32, device=dev)[None, :]
     shape = (cfg.n_layers, b, cache_len, cfg.n_kv_heads, cfg.d_head)
     quant = cfg.kv_quant
-    kc = torch.zeros(shape, dtype=torch.int8 if quant else x.dtype, device=dev)
-    vc = torch.zeros_like(kc)
+    # cache rows: batch over dp, sequence over "model" (decode layout);
+    # unhinted, GSPMD replicated the 257 GB cache in the reference
+    kv_dtype = torch.int8 if quant else x.dtype
+    kc = zeros_hint(shape, None, "dp", "model", None, None, dtype=kv_dtype, device=dev)
+    vc = zeros_hint(shape, None, "dp", "model", None, None, dtype=kv_dtype, device=dev)
     if quant:  # the padding rows quantize to 0 with the floor scale
         ks = torch.full(shape[:-1], 1e-8, dtype=torch.float32, device=dev).to(torch.bfloat16)
         vs = ks.clone()
@@ -277,6 +281,8 @@ def prefill(params, tokens: torch.Tensor, true_len: torch.Tensor,
         o = _attention(q, k, v, cfg, use_kernel)
         x = x + (o.reshape(b, s, -1) @ p["wo"]).to(x.dtype)
         x, _ = _ffn(p, x, cfg)
+        k = shard_hint(k, "dp", "model", None, None)
+        v = shard_hint(v, "dp", "model", None, None)
         if quant:
             kc[i, :, :s], ks[i, :, :s] = _quant_rows(k)
             vc[i, :, :s], vs[i, :, :s] = _quant_rows(v)

@@ -19,8 +19,11 @@ k, so the forward adds nothing atomically and its bits do not vary between
 runs (where ``index_add_`` would add the k rows in atomic order).  Nothing
 here reads a value on the host: shapes are static, as in the reference.
 
-``shard_mode`` stays in the config; on one card it changes no arithmetic
-(the reference's ``shard_hint`` calls are layout hints to GSPMD).
+``shard_mode`` picks the placements the ``shard_hint`` calls give the
+dispatch buffers under a mesh (the dry run's): "expert" puts the E axis on
+"model" (expert parallelism), "tp" the capacity rows on the DP axes and d_ff
+on "model".  Without a mesh the hints return their input: on one card the
+mode changes no arithmetic.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.constraints import shard_hint
 from repro_torch.kernels.topk_sim.ref import stable_topk
 from repro_torch.models.transformer.config import MoEConfig
 
@@ -123,17 +127,32 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig):
     # dispatch: pair (token, slot) -> row expert * cap + rank, dropped pairs
     # onto the scratch row e * cap
     slot = torch.where(keep, r["expert"].reshape(-1) * cap + r["rank"].reshape(-1), e * cap)
+    xg = shard_hint(x[:, None, :].expand(t, k, d).reshape(t * k, d), "dp", None)
     xpad = x.new_zeros((e * cap + 1, d))
-    xpad[slot] = x[:, None, :].expand(t, k, d).reshape(t * k, d)
+    xpad[slot] = xg
     xe = xpad[:e * cap].reshape(e, cap, d)
+    # EP: experts over "model"; TP: capacity over dp, d_ff over "model"
+    expert = cfg.shard_mode == "expert"
+    if expert:
+        xe = shard_hint(xe, "model", None, None)
+    else:
+        xe = shard_hint(xe, None, "dp", None)
     # grouped products (SwiGLU experts), fp32 accumulation
     h = _bmm_f32(xe, params["w1"])  # (E, C, F)
     g = _bmm_f32(xe, params["w3"])
+    if expert:
+        h = shard_hint(h, "model", None, None)
+    else:
+        h = shard_hint(h, None, "dp", "model")
     h = (F.silu(h) * g).to(x.dtype)
-    ye = _bmm_f32(h, params["w2"]).reshape(e * cap, d)  # (E*C, D) fp32
+    ye = _bmm_f32(h, params["w2"])  # (E, C, D) fp32
+    ye = shard_hint(ye, *(("model", None, None) if expert else (None, "dp", None)))
+    ye = ye.reshape(e * cap, d)
     # combine: each pair's row, gated, summed over its k slots.  The gather
     # is index_select: its backward adds each kept row once (dropped pairs
     # add zeros), where advanced indexing's backward sorts its indices
-    yg = torch.where(keep[:, None], ye.index_select(0, torch.clamp(slot, max=e * cap - 1)), 0.0)
+    yg = shard_hint(
+        torch.where(keep[:, None], ye.index_select(0, torch.clamp(slot, max=e * cap - 1)), 0.0),
+        "dp", None)
     y = (yg * r["gate"].reshape(-1)[:, None]).reshape(t, k, d).sum(dim=1)
     return y.to(x.dtype), r["aux"]

@@ -313,8 +313,13 @@ def test_registry_and_effective_configs_match():
         for field in ("model_cfg", "reduced_cfg"):
             assert dataclasses.asdict(getattr(spec, field)) == \
                 dataclasses.asdict(getattr(ref_spec, field))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        configs.input_specs("gin-tu", "molecule")
+    got = configs.input_specs("gin-tu", "molecule")  # abstract: meta tensors, no data
+    want = ref_configs.input_specs("gin-tu", "molecule")
+    assert list(got) == list(want)
+    for k, x in got.items():
+        assert x.device.type == "meta", k
+        assert (tuple(x.shape), str(x.dtype).split(".")[-1]) == \
+            (tuple(want[k].shape), str(want[k].dtype)), k
 
 
 @pytest.mark.parametrize("arch", ["gin", "equiformer_v2"])

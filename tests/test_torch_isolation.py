@@ -46,7 +46,8 @@ assert not bad, bad
                                     "launch.train", "distributed.fault",
                                     "checkpoint.checkpoint", "data.pipeline",
                                     "core.functional", "graph.convert",
-                                    "distributed.constraints", "distributed.policies"])
+                                    "distributed.constraints", "distributed.policies",
+                                    "launch.mesh", "launch.dryrun"])
 def test_module_alone_imports_neither_jax_nor_the_reference(module):
     """Each host-copied module (and the engines that use the drafter),
     imported on its own in a fresh interpreter, loads no JAX and nothing of
@@ -56,6 +57,23 @@ def test_module_alone_imports_neither_jax_nor_the_reference(module):
     assert out.returncode == 0, out.stderr
     src = (ROOT / "src" / "repro_torch" / (module.replace(".", "/") + ".py")).read_text()
     assert "import jax" not in src and "from repro." not in src and "import repro\n" not in src
+
+
+_NO_GROUP = """
+import torch.distributed as dist
+import repro_torch.launch.dryrun, repro_torch.launch.mesh, repro_torch.distributed.constraints
+assert not dist.is_initialized()
+from repro_torch.distributed.constraints import shard_hint
+import torch
+x = torch.ones(3)
+assert shard_hint(x, "dp") is x and not dist.is_initialized()
+"""
+
+
+def test_importing_the_dry_run_starts_no_process_group():
+    out = subprocess.run([sys.executable, "-c", _NO_GROUP], env=_env(), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def _env():
