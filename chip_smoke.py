@@ -147,7 +147,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    call above the allocation that stood before its own arguments were
    made (the ratio must lie in [0.8, 1.25]), and its FLOPs over the
    measured device ms as a share of the fp32 peak; one ``dryrun_vs_card``
-   line.
+   line;
+14. (after phase 13, over the main path's graph and pipeline) the index
+   over the host's cards: ``ShardedIndex`` with S = 4 over every visible
+   card, or two mesh positions on the one card where there is one, on the
+   serving table (169,343 x 128, Q 4, k 3) and Wide & Deep's
+   ``retrieval_cand`` table (1M x 256 fp32, Q 1, k 100), brute and IVF:
+   brute ids equal ``BruteIndex``'s, scores and ids bit-equal to the same S
+   on one device, S op calls a search, each on its position's card; wall
+   and device ms (split by card) beside the one-device index's
+   (``sharded_devices`` line); then the main path's mix served once with
+   ``index_kind="sharded"`` over those devices, the weights drawn again
+   from the main path's seed: tokens equal the brute serve's, uid by uid
+   (``sharded_serve`` line).
 
 A ``script_s`` line gives the script's own seconds, and each stretch's
 between the main phases (``phases_s``).  Then come
@@ -249,15 +261,19 @@ def device_ms(fn, calls: int = 10) -> tuple[float, dict]:
     return sum(by_name.values()), by_name
 
 
-def kernel_ms_by_name(prof, per: int) -> dict:
-    """Device time of the kernels in a profiler trace, ms per ``per``.  The
-    device-side spans of ``record_function`` ranges (``optimizer_annotated``,
+def kernel_events(prof) -> list:
+    """The kernels' device events of a profiler trace.  The device-side
+    spans of ``record_function`` ranges (``optimizer_annotated``,
     ``moe_annotated``) are not kernels and are left out."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not (getattr(e, "is_user_annotation", False) or e.name in ANNOTATIONS)]
+
+
+def kernel_ms_by_name(prof, per: int) -> dict:
+    """Device time of the kernels in a profiler trace, ms per ``per``."""
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and not (
-                getattr(e, "is_user_annotation", False) or e.name in ANNOTATIONS):
-            by_name[e.name[:48]] = by_name.get(e.name[:48], 0.0) + e.device_time / 1e3 / per
+    for e in kernel_events(prof):
+        by_name[e.name[:48]] = by_name.get(e.name[:48], 0.0) + e.device_time / 1e3 / per
     return by_name
 
 
@@ -798,26 +814,29 @@ def counted_serve(cfg, args: argparse.Namespace, q_ids: np.ndarray, params=None,
 
 
 def check_serve_launches(out: dict, launches: dict, overflow_rows: list, index: str,
-                         mode: str = "auto", topk_waves: int | None = None) -> int:
+                         mode: str = "auto", topk_waves: int | None = None,
+                         shards: int = 1) -> int:
     """The retrieval kernels ran on the serve as ``check_wave_launches``
     says.  Returns the waves that ran dense hops."""
     return check_wave_launches(out["retrieval_batches"], out["engine"].pipeline.config.max_hops,
-                               launches, overflow_rows, index, mode, topk_waves)
+                               launches, overflow_rows, index, mode, topk_waves, shards)
 
 
 def check_wave_launches(waves: int, hops: int, launches: dict, overflow_rows: list, index: str,
-                        mode: str = "auto", topk_waves: int | None = None) -> int:
+                        mode: str = "auto", topk_waves: int | None = None,
+                        shards: int = 1) -> int:
     """The retrieval kernels ran on ``waves`` waves of ``hops`` hops:
-    ``topk_sim`` (brute) or ``ivf_scan`` once a wave, ``frontier_expand``
-    once a hop of every wave, ``bfs_frontier`` once a hop of every dense
-    re-run (under ``mode="dense"``: no compact hop, ``bfs_frontier`` once a
-    hop of every wave).  ``topk_waves`` is the waves that searched a
-    ``BruteIndex`` where not all did (a mutation store's active brute index
-    scans without the kernel).  Returns the waves that ran dense hops."""
+    ``topk_sim`` (brute) or ``ivf_scan`` once a wave (``shards`` times for a
+    sharded index), ``frontier_expand`` once a hop of every wave,
+    ``bfs_frontier`` once a hop of every dense re-run (under
+    ``mode="dense"``: no compact hop, ``bfs_frontier`` once a hop of every
+    wave).  ``topk_waves`` is the waves that searched a ``BruteIndex`` where
+    not all did (a mutation store's active brute index scans without the
+    kernel).  Returns the waves that ran dense hops."""
     if topk_waves is None:
         topk_waves = waves if index == "brute" else 0
-    assert launches["topk_sim"] == topk_waves, (launches, waves, topk_waves)
-    assert launches["ivf_scan"] == (waves if index == "ivf" else 0), (launches, waves)
+    assert launches["topk_sim"] == shards * topk_waves, (launches, waves, topk_waves, shards)
+    assert launches["ivf_scan"] == (shards * waves if index == "ivf" else 0), (launches, waves)
     if mode == "dense":
         assert waves > 0 and not overflow_rows, (overflow_rows, waves)
         assert launches["frontier_expand"] == 0, launches
@@ -2971,8 +2990,8 @@ def cross_device_index_check(feat_cpu: np.ndarray, rng) -> dict:
                         ("sharded_ivf", lambda: ShardedIndex.build(
                             feat_cpu, n_shards=4, inner="ivf", device="cpu"))):
         cpu = build()
-        card = type(cpu)(**{f: (v.to(DEV) if torch.is_tensor(v) else v)
-                            for f, v in vars(cpu).items()})
+        card = cpu.to(DEV) if isinstance(cpu, ShardedIndex) else type(cpu)(
+            **{f: (v.to(DEV) if torch.is_tensor(v) else v) for f, v in vars(cpu).items()})
         s_h, i_h = cpu.search(q, 32)
         s_c, i_c = card.search(q.to(DEV), 32)
         assert torch.equal(i_c.cpu(), i_h), f"{name}: card ids differ from the CPU's"
@@ -3851,6 +3870,160 @@ def dryrun_phase(card: str, measured: dict) -> dict:
     return out
 
 
+# ------------------------------------- the index over the host's cards (14) ----
+SHARDS = 4  # phase 14's n_shards
+SHARDED_TABLES = {"serving": (4, 3), "retrieval_cand": (1, 100)}  # table -> (Q, k)
+
+
+def phase_devices() -> list:
+    """Phase 14's mesh positions: every visible card where there are two or
+    more, else two positions on the one card (the twin of the reference's
+    tests, which force several host devices on one CPU)."""
+    n = torch.cuda.device_count()
+    return [f"cuda:{i}" for i in range(n)] if n >= 2 else ["cuda:0", "cuda:0"]
+
+
+def sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def device_ms_by_card(fn, calls: int = 10) -> tuple[float, dict]:
+    """``device_ms`` of ``fn`` (which ends by reading its result on the
+    host), and that time split by card index."""
+    for _ in range(3):
+        fn()
+    sync_all()
+    by_card: dict = {}
+    for e in kernel_events(traced(fn, calls)):
+        by_card[e.device_index] = by_card.get(e.device_index, 0.0) + e.device_time / 1e3 / calls
+    return sum(by_card.values()), by_card
+
+
+def sharded_devices_check(card: str, cards: list, feat: torch.Tensor, devs: list,
+                          home: torch.device) -> dict:
+    """Phase 14 (a): ``ShardedIndex`` with S = 4 over ``devs`` on the serving
+    cell's table (169,343 x 128, Q 4, k 3) and Wide & Deep's
+    ``retrieval_cand`` table (1M x 256 fp32, Q 1, k 100), brute and IVF:
+    brute ids equal ``BruteIndex``'s; scores and ids bit-equal to the same
+    S on one device; S op calls a search, each on its position's card
+    (``LaunchCounter.by_device``); wall and device ms beside the one-device
+    index's.  One ``sharded_devices`` line."""
+    from collections import Counter
+
+    from repro_torch.core.indexing import BruteIndex
+    from repro_torch.core.sharding import ShardedIndex
+    from repro_torch.kernels.ivf_scan import kernel as ivf_kernel
+    from repro_torch.kernels.topk_sim import kernel as topk_kernel
+
+    rng = np.random.default_rng(14)
+    gen = torch.Generator(device=home).manual_seed(14)
+    tables = {"serving": feat,
+              "retrieval_cand": torch.randn((1_000_000, 256), generator=gen, device=home)}
+    runs, mesh_size = {}, None
+    for name, table in tables.items():
+        nq, k = SHARDED_TABLES[name]
+        q = index_queries(table, nq, rng)
+        _, brute_ids = BruteIndex.build(table, device=home).search(q, k)
+        for inner in ("brute", "ivf"):
+            builds = {}
+            for where, on in (("mesh", devs), ("one_device", [home])):
+                sync_all()
+                t = time.perf_counter()
+                builds[where] = ShardedIndex.build(table, n_shards=SHARDS, inner=inner,
+                                                   devices=on, device=home)
+                sync_all()
+                builds[where + "_build_s"] = time.perf_counter() - t
+            mesh, one = builds["mesh"], builds["one_device"]
+            mesh_size = mesh.mesh_size
+            counter = topk_kernel.launches if inner == "brute" else ivf_kernel.launches
+            counter.reset()
+            s_m, i_m = mesh.search(q, k)
+            sync_all()
+            launches, by_device = counter.count, dict(counter.by_device)
+            want = Counter(d.index for d in mesh.devices for _ in range(SHARDS // mesh_size))
+            assert launches == SHARDS and by_device == dict(want), (name, inner, launches,
+                                                                    by_device)
+            s_1, i_1 = one.search(q, k)
+            assert torch.equal(i_m, i_1) and torch.equal(s_m.view(torch.int32),
+                                                         s_1.view(torch.int32)), (name, inner)
+            if inner == "brute":
+                assert torch.equal(i_m, brute_ids), f"{name}: sharded ids differ from brute ids"
+            timing = {}
+            for where, idx in (("mesh", mesh), ("one_device", one)):
+                run = lambda: idx.search(q, k)[1].cpu()  # noqa: E731
+                dev_ms, by_card = device_ms_by_card(run)
+                timing[where] = {"wall_ms": time_ms(run), "device_ms": dev_ms,
+                                 "device_ms_by_card": by_card,
+                                 "build_s": builds[where + "_build_s"]}
+            runs[f"{name}/{inner}"] = {"shape": f"N={table.shape[0]} D={table.shape[1]} "
+                                                f"Q={nq} k={k}",
+                                       "launches": launches, "launches_by_card": by_device,
+                                       "ids_equal_brute": inner == "brute" or None,
+                                       "bit_equal_one_device": True, **timing}
+            del builds, mesh, one
+    return {"devices": [str(d) for d in devs], "mesh_size": mesh_size, "n_shards": SHARDS,
+            "card": card, "cards": cards, "runs": runs}
+
+
+def sharded_serve(card: str, stack: dict, devs: list, brute_tokens: dict) -> dict:
+    """Phase 14 (b): the main path's mix (StarCoder2-3B bf16, full width and
+    depth, the 169,343-node graph, 12 requests, 12 new tokens) served once
+    with ``index_kind="sharded"`` (S = 4) over ``devs``, the weights drawn
+    again from the main path's seed: tokens equal the brute serve's, uid by
+    uid; S ``topk_sim`` op calls a wave, on the positions' cards."""
+    from collections import Counter
+
+    from repro_torch.core.pipeline import index_from_config
+    from repro_torch.models.transformer import model as tm
+
+    pipe, cfg = stack["pipe"], stack["cfg"]
+    scfg = dataclasses.replace(pipe.config, index_kind="sharded", index_shards=SHARDS)
+    spipe = dataclasses.replace(pipe, config=scfg, index=index_from_config(
+        pipe.node_emb, scfg, device=pipe.device, devices=devs))
+    params = tm.init_params(cfg, torch.Generator(device=pipe.device).manual_seed(0),
+                            device=pipe.device)
+    args = serve_args(index="sharded", shards=SHARDS)
+    distinct = np.random.default_rng(0).choice(args.nodes, 8, replace=False)
+    q_ids = np.concatenate([distinct, distinct[:4]])
+    out, launches, overflow_rows = counted_serve(cfg, args, q_ids,
+                                                 stack={**stack, "pipe": spipe, "params": params})
+    by_device = dict(serve_counters()["topk_sim"].by_device)
+    done = out["done"]
+    assert len(done) == 12 and all(r.done and not r.failed for r in done), "requests lost"
+    waves = out["retrieval_batches"]
+    check_serve_launches(out, launches, overflow_rows, "brute", shards=SHARDS)
+    mesh = spipe.index
+    per_wave = Counter(d.index for d in mesh.devices for _ in range(SHARDS // mesh.mesh_size))
+    assert by_device == {i: n * waves for i, n in per_wave.items()}, (by_device, waves)
+    tokens = {r.uid: r.out_tokens for r in done}
+    assert tokens == brute_tokens, {u: (tokens[u], brute_tokens[u]) for u in tokens
+                                    if tokens[u] != brute_tokens[u]}
+    return {"card": card, "devices": [str(d) for d in mesh.devices], "n_shards": SHARDS,
+            "waves": waves, "retrieval_launches": launches, "topk_sim_by_card": by_device,
+            "tokens_equal_brute_serve": True, "tok_per_s": out["tok_per_s"],
+            "serve_s": out["serve_s"], "retrieval_s": out["retrieval_s"]}
+
+
+def sharded_phase(card: str, stack: dict, brute_tokens: dict) -> dict:
+    """Phase 14: the index over the host's cards (``sharded_devices``, then
+    ``sharded_serve``), each check raising; the phase's seconds."""
+    t0 = time.perf_counter()
+    devs = phase_devices()
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    rec = sharded_devices_check(card, cards, stack["pipe"].node_emb, devs,
+                                stack["pipe"].device)
+    print(json.dumps({"sharded_devices": rec}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = sharded_serve(card, stack, devs, brute_tokens)
+    serve["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"sharded_serve": serve}), flush=True)
+    return {"devices": rec, "serve": serve}
+
+
 # ------------------------------------------------ the RAG-LM trainer (12) ----
 RAG_LM_STEPS = 20  # steps of the uninterrupted run (and of the restart run)
 RAG_LM_EVERY = 10  # checkpoint interval: saves at steps 10 and 20
@@ -4295,7 +4468,8 @@ def main() -> int:
     mark("granite_serving")
     rag_lm_phase(card, stack)
     mark("rag_lm")
-    del params, stack
+    del params  # phase 14 keeps the stack's graph and pipeline, and draws the weights again
+    stack["params"] = None
     print(json.dumps({"main_path": "the same with the IVF index (64 lists, nprobe 4)",
                       "card": card, **mp_ivf}), flush=True)
     print(json.dumps({"ivf_vs_brute_serve": {
@@ -4408,6 +4582,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     dryrun_phase(card, measured)
     mark("dryrun")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_phase(card, stack, brute_tokens)
+    del stack
+    mark("sharded_over_cards")
 
     for rec in records:
         print(json.dumps({"kernel": rec["name"], "card": card, **rec}))

@@ -19,10 +19,15 @@ torch.backends.cudnn.allow_tf32 = False
 
 def resolve_device(device="cuda") -> torch.device:
     """``device`` as a ``torch.device``; raises if it names CUDA and no card
-    is visible (the caller must ask for the CPU explicitly)."""
+    is visible (the caller must ask for the CPU explicitly), or names a card
+    index that is not there."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run on the CPU"
-        )
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run on the CPU"
+            )
+        if dev.index is not None and dev.index >= torch.cuda.device_count():
+            raise RuntimeError(f"{dev} is not there: {torch.cuda.device_count()} "
+                               "CUDA device(s) are visible")
     return dev

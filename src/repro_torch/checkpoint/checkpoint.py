@@ -1,5 +1,6 @@
-"""Sharded, atomic, async checkpointing with restore onto a named device
-(the reference's ``repro.checkpoint.checkpoint``, same files).
+"""Sharded, atomic, async checkpointing with restore onto a named device or
+a target placement (the reference's ``repro.checkpoint.checkpoint``, same
+files).
 
 Layout per step:  <dir>/step_<N:08d>/
     manifest.json          — step, leaf paths/shapes/dtypes, shard layout
@@ -20,7 +21,9 @@ worker thread; its ``save`` copies every leaf to the host before it returns,
 because the training step updates parameters and moments in place: a copy
 still in flight when the next step writes would save a torn state.  Restore
 puts each leaf on ``device``, or on the device of the matching leaf of
-``like``: a checkpoint written on one device restores onto another.
+``like``: a checkpoint written on one device restores onto another; with a
+``sharding_tree``, onto a target placement per leaf (a device, or a piece of
+a ``DeviceMesh``).
 """
 from __future__ import annotations
 
@@ -117,11 +120,62 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, like, step: Optional[int] = None, device=None):
+def _is_placement(x) -> bool:
+    """A leaf of a sharding tree: None, a device (or its name), or a
+    ``(DeviceMesh, placements)`` pair."""
+    if x is None or isinstance(x, (str, torch.device)):
+        return True
+    if isinstance(x, tuple) and len(x) == 2:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        return isinstance(x[0], DeviceMesh)
+    return False
+
+
+def _placements(tree, prefix: tuple = ()) -> dict:
+    """Leaf path -> placement of a sharding tree (the structure of ``like``)."""
+    if _is_placement(tree):
+        return {"/".join(prefix): tree}
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        raise TypeError(f"not a placement: {tree!r}")
+    return {p: v for k, sub in items for p, v in _placements(sub, prefix + (str(k),)).items()}
+
+
+def _onto_mesh(t: torch.Tensor, mesh, placements, device) -> torch.Tensor:
+    """This rank's piece of the whole leaf ``t`` as a DTensor on ``mesh``
+    (on ``device``, default the mesh's device type); no collective runs."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    from repro_torch.distributed.constraints import contiguous_stride
+
+    shape = tuple(t.shape)
+    local, offset = compute_local_shape_and_global_offset(shape, mesh, placements)
+    piece = t[tuple(slice(o, o + n) for o, n in zip(offset, local))]
+    piece = piece.to(mesh.device_type if device is None else device).contiguous()
+    return DTensor.from_local(piece, mesh, placements, run_check=False, shape=shape,
+                              stride=contiguous_stride(shape))
+
+
+def restore_checkpoint(ckpt_dir: str, like, step: Optional[int] = None, device=None,
+                       sharding_tree=None):
     """Restore into the structure of ``like``: each leaf read by its
     manifest dtype, cast to the dtype of the matching tensor leaf of
     ``like`` and put on ``device`` (default: that leaf's device; the CPU for
-    a leaf that is not a tensor).  Returns (tree, step)."""
+    a leaf that is not a tensor).  Returns (tree, step).
+
+    ``sharding_tree`` (the structure of ``like``) puts each leaf onto a
+    target placement instead, the reference's reshard-on-restore: ``None``
+    leaves the leaf to ``device``; a device (or its name) is the twin of a
+    ``SingleDeviceSharding``; a ``(DeviceMesh, placements)`` pair, such as
+    ``(mesh, policies.named(mesh, spec))``, the twin of a ``NamedSharding``:
+    each rank reads the whole leaf and keeps its own piece, a DTensor of the
+    leaf's global shape."""
+    targets = {} if sharding_tree is None else _placements(sharding_tree)
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -138,7 +192,14 @@ def restore_checkpoint(ckpt_dir: str, like, step: Optional[int] = None, device=N
             cache[i] = np.load(os.path.join(d, f"shard_{i}.npz"))
         t = _from_numpy(cache[i][path.replace("/", "__")], info["dtype"])
         if isinstance(leaf, torch.Tensor):
-            return t.to(device=leaf.device if device is None else device, dtype=leaf.dtype)
+            t = t.to(dtype=leaf.dtype)
+        target = targets.get(path)
+        if isinstance(target, tuple):
+            return _onto_mesh(t, *target, device)
+        if target is not None:
+            return t.to(target)
+        if isinstance(leaf, torch.Tensor):
+            return t.to(leaf.device if device is None else device)
         return t if device is None else t.to(device)
 
     out = tree_map_with_path(lambda p, leaf: None if leaf is None else load_leaf(p, leaf), like)

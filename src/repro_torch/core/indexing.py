@@ -8,7 +8,8 @@ Vector indexes over node embeddings (paper §2.1.2):
   probes ``nprobe`` lists per query and scores their members with the
   :mod:`repro_torch.kernels.ivf_scan` kernel.
 * ``ShardedIndex`` (:mod:`repro_torch.core.sharding`) — row-partitions
-  either scan into logical shards and merges the per-shard top-k.
+  either scan into shards laid over the host's cards and merges the
+  per-shard top-k.
 * :class:`MutableBruteIndex` / :class:`MutableIVFIndex` — the online
   mutation tier's capacity-padded indexes (:mod:`repro_torch.core.mutation`).
 """
@@ -154,11 +155,13 @@ def ivf_candidates(centroids, lists, list_mask, q, nprobe: int):
             list_mask[probe].reshape(q.shape[0], -1))
 
 
-def ivf_probe_scan(emb, centroids, lists, list_mask, q, nprobe: int, k: int):
+def ivf_probe_scan(emb, centroids, lists, list_mask, q, nprobe: int, k: int, *,
+                   use_kernel=None):
     """The IVF search (also run per shard): probe, then scan the candidates
-    (:func:`repro_torch.kernels.ivf_scan.ops.ivf_candidate_scan`)."""
+    (:func:`repro_torch.kernels.ivf_scan.ops.ivf_candidate_scan`, to which
+    ``use_kernel`` is passed)."""
     cand, cmask = ivf_candidates(centroids, lists, list_mask, q, nprobe)
-    return ivf_ops.ivf_candidate_scan(q, emb, cand, cmask, k)
+    return ivf_ops.ivf_candidate_scan(q, emb, cand, cmask, k, use_kernel=use_kernel)
 
 
 # ---- mutable tier (online insert/delete; see repro_torch.core.mutation) ----

@@ -33,7 +33,7 @@ class PipelineConfig:
     node_token_budget: int = 48
     # stage-1 vector index: brute | ivf | sharded | sharded_ivf
     index_kind: str = "brute"
-    index_shards: Optional[int] = None  # sharded kinds; None = one per device (one card)
+    index_shards: Optional[int] = None  # sharded kinds; None = one per device
     # stage-3 subgraph construction backend: dense | compact | auto
     retrieval_mode: str = "auto"
     workset_cap: int = 2048  # compact backend candidate capacity per query
@@ -69,7 +69,8 @@ class RetrievalResult:
 
 def index_from_config(emb, config: PipelineConfig, **kw):
     """Build the stage-1 index named by ``config.index_kind`` (the sharded
-    kinds with ``config.index_shards`` shards)."""
+    kinds with ``config.index_shards`` shards, over ``devices=`` when given:
+    ``kw`` goes to ``build_index``)."""
     if config.index_kind in ("sharded", "sharded_ivf"):
         kw.setdefault("n_shards", config.index_shards)
     return build_index(emb, kind=config.index_kind, **kw)

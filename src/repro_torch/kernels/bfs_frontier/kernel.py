@@ -129,10 +129,11 @@ def frontier_hop_kernel(frontier: torch.Tensor, nbr: torch.Tensor,
     plan = launch_plan(q, n, k, nbr_mask.data_ptr(), nbr.data_ptr(),
                        build.sm_count(frontier.device))
     words = torch.empty((plan.groups, n), dtype=torch.int32, device=frontier.device)
-    err = _fn()(frontier.data_ptr(), nbr.data_ptr(), nbr_mask.data_ptr(), out.data_ptr(),
-                words.data_ptr(), q, n, k, plan.variant, plan.rows, plan.grid_x,
-                torch.cuda.current_stream(frontier.device).cuda_stream)
-    launches.count += 1
+    with torch.cuda.device(frontier.device):  # the C side launches on the current card
+        err = _fn()(frontier.data_ptr(), nbr.data_ptr(), nbr_mask.data_ptr(), out.data_ptr(),
+                    words.data_ptr(), q, n, k, plan.variant, plan.rows, plan.grid_x,
+                    torch.cuda.current_stream(frontier.device).cuda_stream)
+    launches.bump(frontier.device)
     last_plan = plan
     build.check_status(err, "bfs_frontier")
     return out

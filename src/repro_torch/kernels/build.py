@@ -35,13 +35,20 @@ _lib: ctypes.CDLL | None = None
 
 class LaunchCounter:
     """Launches made through one kernel wrapper: ``count`` is a plain int
-    that the wrapper bumps once per kernel launch and callers reset."""
+    that the wrapper bumps once per kernel launch (``bump``) and callers
+    reset; ``by_device`` splits it by the card index launched on."""
 
     def __init__(self) -> None:
         self.count = 0
+        self.by_device: dict = {}
+
+    def bump(self, device: torch.device) -> None:
+        self.count += 1
+        self.by_device[device.index] = self.by_device.get(device.index, 0) + 1
 
     def reset(self) -> None:
         self.count = 0
+        self.by_device = {}
 
 
 def _nvcc() -> str:

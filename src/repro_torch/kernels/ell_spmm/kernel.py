@@ -122,10 +122,11 @@ def ell_aggregate_kernel(feat: torch.Tensor, nbr: torch.Tensor, nbr_mask: torch.
     if plan is None:
         plan = ell_plan(q, m, k, d, feat.dtype)
     out = torch.empty_like(feat)
-    err = _fn()(feat.data_ptr(), nbr.data_ptr(), nbr_mask.data_ptr(), out.data_ptr(), q, m, k, d,
-                _DTYPES[feat.dtype], plan.variant, plan.cols, plan.grid, plan.smem_bytes,
-                torch.cuda.current_stream(feat.device).cuda_stream)
-    launches.count += 1
+    with torch.cuda.device(feat.device):  # the C side raises limits and launches there
+        err = _fn()(feat.data_ptr(), nbr.data_ptr(), nbr_mask.data_ptr(), out.data_ptr(), q, m,
+                    k, d, _DTYPES[feat.dtype], plan.variant, plan.cols, plan.grid,
+                    plan.smem_bytes, torch.cuda.current_stream(feat.device).cuda_stream)
+    launches.bump(feat.device)
     last_plan = plan
     build.check_status(err, "ell_spmm")
     return out

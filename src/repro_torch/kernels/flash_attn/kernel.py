@@ -3,8 +3,8 @@ the FlashAttention-2 forward and the two passes of its backward.
 
 Each wrapper checks what its kernel takes (one Hopper card, contiguous
 tensors, fp32 or bf16, dh in ``HEAD_DIMS``, H a multiple of KV), raises
-on anything else, allocates the outputs, launches on the current stream and
-counts the launch.  The dq pass writes ``delta`` for the dk/dv pass, which
+on anything else, allocates the outputs, launches on the tensors' card
+(made current for the call) and its current stream, and counts the launch.  The dq pass writes ``delta`` for the dk/dv pass, which
 must be launched after it on the same stream.
 
 The C side picks each pass's kernel by (type, dh): bf16 at dh 64 and 128
@@ -123,10 +123,11 @@ def flash_fwd_kernel(q, k, v, window: Optional[int] = None):
     b, s, h, kvh, dh, win, dt, scale = _check(q, k, v, window)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    err = _fn("flash_fwd")(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                           lse.data_ptr(), b, s, h, kvh, dh, win, dt, scale, _stream(q))
+    with torch.cuda.device(q.device):
+        err = _fn("flash_fwd")(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                               lse.data_ptr(), b, s, h, kvh, dh, win, dt, scale, _stream(q))
     build.check_status(err, "flash_fwd")
-    fwd_launches.count += 1
+    fwd_launches.bump(q.device)
     return o, lse
 
 
@@ -136,11 +137,12 @@ def flash_bwd_dq_kernel(q, k, v, o, do, lse, window: Optional[int] = None):
     _check_rows("lse", lse, b, h, s, q.device)
     dq = torch.empty_like(q)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    err = _fn("flash_bwd_dq")(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                              do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                              b, s, h, kvh, dh, win, dt, scale, _stream(q))
+    with torch.cuda.device(q.device):
+        err = _fn("flash_bwd_dq")(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                                  b, s, h, kvh, dh, win, dt, scale, _stream(q))
     build.check_status(err, "flash_bwd_dq")
-    dq_launches.count += 1
+    dq_launches.bump(q.device)
     return dq, delta
 
 
@@ -155,10 +157,11 @@ def flash_bwd_dkv_kernel(q, k, v, do, lse, delta, window: Optional[int] = None):
     dv = torch.empty_like(v)
     groups, scratch = dkv_plan(q.device.index, b, s, h, kvh, dh, win, dt)
     part = torch.empty(scratch, dtype=torch.float32, device=q.device) if scratch else None
-    err = _fn("flash_bwd_dkv")(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                               lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                               None if part is None else part.data_ptr(), b, s, h, kvh, dh, win,
-                               dt, groups, scale, _stream(q))
+    with torch.cuda.device(q.device):
+        err = _fn("flash_bwd_dkv")(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                   lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                   None if part is None else part.data_ptr(), b, s, h, kvh, dh,
+                                   win, dt, groups, scale, _stream(q))
     build.check_status(err, "flash_bwd_dkv")
-    dkv_launches.count += 1
+    dkv_launches.bump(q.device)
     return dk, dv

@@ -73,8 +73,9 @@ def ws_mark_kernel(ws_ids: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
     if q == 0 or w == 0:
         return out
     plan = mark_plan(q, w, cand.data_ptr(), out.data_ptr(), build.sm_count(cand.device))
-    err = _fn()(ws_ids.data_ptr(), cand.data_ptr(), out.data_ptr(), q, c, w, int(plan.vec),
-                plan.blocks_per_q, torch.cuda.current_stream(cand.device).cuda_stream)
-    launches.count += 1
+    with torch.cuda.device(cand.device):  # the C side launches on the current card
+        err = _fn()(ws_ids.data_ptr(), cand.data_ptr(), out.data_ptr(), q, c, w, int(plan.vec),
+                    plan.blocks_per_q, torch.cuda.current_stream(cand.device).cuda_stream)
+    launches.bump(cand.device)
     build.check_status(err, "frontier_expand")
     return out

@@ -107,10 +107,12 @@ def ivf_scan_kernel(q: torch.Tensor, emb: torch.Tensor, cand: torch.Tensor,
     tree = torch.empty((nq * plan.stride, 2), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ws = topk_merge.workspace(dev, stream, nq)
-    err = _fn()(q.data_ptr(), emb.data_ptr(), cand.data_ptr(), cmask.data_ptr(), out_s.data_ptr(),
-                out_i.data_ptr(), pool.data_ptr(), tree.data_ptr(), ws.data_ptr(), nq, n, d, w, k,
-                plan.kk, plan.span, plan.grid_x, plan.stride, stream)
-    launches.count += 1
+    with torch.cuda.device(dev):  # the C side plans and launches on the current card
+        err = _fn()(q.data_ptr(), emb.data_ptr(), cand.data_ptr(), cmask.data_ptr(),
+                    out_s.data_ptr(), out_i.data_ptr(), pool.data_ptr(), tree.data_ptr(),
+                    ws.data_ptr(), nq, n, d, w, k, plan.kk, plan.span, plan.grid_x, plan.stride,
+                    stream)
+    launches.bump(dev)
     last_plan = plan
     build.check_status(err, "ivf_scan")
     return out_s, out_i

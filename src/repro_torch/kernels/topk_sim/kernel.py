@@ -153,10 +153,12 @@ def topk_sim_kernel(q: torch.Tensor, emb: torch.Tensor, k: int):
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     pool = torch.empty((nq * plan.stride, 2), dtype=torch.int32, device=dev)
     tree = torch.empty((nq * plan.stride, 2), dtype=torch.int32, device=dev)
-    err = _fn()(q.data_ptr(), emb.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), pool.data_ptr(),
-                tree.data_ptr(), nq, n, d, k, plan.variant, plan.qw, plan.group, plan.kk,
-                plan.grid_x, plan.stride, torch.cuda.current_stream(dev).cuda_stream)
-    launches.count += 1
+    with torch.cuda.device(dev):  # the C side plans and launches on the current card
+        err = _fn()(q.data_ptr(), emb.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+                    pool.data_ptr(), tree.data_ptr(), nq, n, d, k, plan.variant, plan.qw,
+                    plan.group, plan.kk, plan.grid_x, plan.stride,
+                    torch.cuda.current_stream(dev).cuda_stream)
+    launches.bump(dev)
     last_plan = plan
     build.check_status(err, "topk_sim")
     return out_s, out_i

@@ -413,6 +413,47 @@ def _local_attention(fn):
 _ATTENTION = ("dense_attention", "chunked_attention")
 
 
+class _ChunkRows:
+    """A row-sharded edge array (``Shard(0)`` over the DP axes) read chunk
+    by chunk, as EquiformerV2's loops read it (``g.src[span]``): chunk ``ci``
+    is a DTensor of the chunk's global shape whose rank-0 piece is the
+    ``ci``-th of rank 0's own rows cut in ``len(spans)`` equal parts, so each
+    device scans its own edges a chunk at a time.  Slicing the sharded array
+    instead would all-gather all of it for every chunk (DTensor's rule for
+    a partial slice of a sharded dim)."""
+
+    def __init__(self, x, spans: list):
+        self.x, self.chunk = x, spans[0].stop - spans[0].start
+        self.local = x.to_local()
+        self.rows = self.local.shape[0] // len(spans)
+
+    def __getitem__(self, span: slice):
+        from torch.distributed.tensor import DTensor
+
+        ci = span.start // self.chunk
+        piece = self.local[ci * self.rows:(ci + 1) * self.rows]
+        shape = (self.chunk,) + tuple(self.x.shape[1:])
+        return DTensor.from_local(piece, self.x.device_mesh, self.x.placements, run_check=False,
+                                  shape=shape, stride=contiguous_stride(shape))
+
+
+def _chunked_edges(make):
+    """``equiformer._Edges`` with its row-sharded edge arrays read chunk by
+    chunk (``_ChunkRows``) where the rows split evenly into the chunks."""
+    def build(**kw):
+        from torch.distributed.tensor import DTensor
+
+        spans = kw["spans"]
+        for name in ("src", "dst", "emask", "ebin", "rbf"):
+            x = kw[name]
+            if (isinstance(x, DTensor) and any(p.is_shard(0) for p in x.placements)
+                    and all(p.is_shard(0) or p.is_replicate() for p in x.placements)
+                    and x.to_local().shape[0] % len(spans) == 0):
+                kw[name] = _ChunkRows(x, spans)
+        return make(**kw)
+    return build
+
+
 def _handlers() -> dict:
     from torch.distributed.tensor import DTensor
 
@@ -431,13 +472,13 @@ def _fallback_ops() -> dict:
 
 
 @contextlib.contextmanager
-def _fake_world(world: int):
-    """A fake process group of ``world`` ranks, this process rank 0;
+def _fake_world(world: int, rank: int = 0):
+    """A fake process group of ``world`` ranks, this process rank ``rank``;
     destroyed on the way out, whatever happens inside."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
     try:
         yield
     finally:
@@ -447,14 +488,16 @@ def _fake_world(world: int):
 @contextlib.contextmanager
 def _counting(count: _Count, mesh):
     """Rank 0's local ops counted; on a mesh of several ranks, with
-    ``_fallback_ops`` handled by the dry run's rules and whole-sequence
-    attention run on local shards."""
+    ``_fallback_ops`` handled by the dry run's rules, whole-sequence
+    attention run on local shards and EquiformerV2's edge arrays read chunk
+    by chunk from each rank's own rows (``_chunked_edges``)."""
     if mesh.size() == 1:  # no DTensor: the arguments are plain local tensors
         with count.mode:
             yield count
         return
     from torch.distributed.tensor.experimental import implicit_replication
 
+    from repro_torch.models.gnn import equiformer
     from repro_torch.models.transformer import attention
 
     fallback = _fallback_ops()
@@ -463,6 +506,8 @@ def _counting(count: _Count, mesh):
     whole = {name: getattr(attention, name) for name in _ATTENTION}
     for name, fn in whole.items():
         setattr(attention, name, _local_attention(fn))
+    make_edges = equiformer._Edges
+    equiformer._Edges = _chunked_edges(make_edges)
     handlers.update(fallback)
     try:
         with implicit_replication(), count.mode:
@@ -470,6 +515,7 @@ def _counting(count: _Count, mesh):
     finally:
         for name, fn in whole.items():
             setattr(attention, name, fn)
+        equiformer._Edges = make_edges
         for op, fn in _ORIGINAL.items():
             if fn is None:
                 handlers.pop(op, None)

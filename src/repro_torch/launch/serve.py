@@ -315,7 +315,7 @@ def main(argv=None):
     ap.add_argument("--index", default="brute", choices=["brute", "ivf", "sharded", "sharded_ivf"],
                     help="stage-1 vector index backend")
     ap.add_argument("--shards", type=int, default=None,
-                    help="shard count for the sharded index kinds (default: one per device)")
+                    help="shard count for sharded index kinds (default: one per device)")
     ap.add_argument("--retrieval", default="auto", choices=["dense", "compact", "auto"],
                     help="stage-3 subgraph construction backend")
     ap.add_argument("--cache-policy", default="lru", choices=["lru", "lfu", "ttl"])

@@ -136,6 +136,67 @@ def test_restore_onto_named_device(tmp_path):
     np.testing.assert_array_equal(r["a"].numpy(), t["a"].numpy().astype(np.float64))
 
 
+def test_restore_onto_sharding(tmp_path):
+    """The reference's ``test_restore_onto_sharding`` twin: a device per
+    leaf (the twin of ``SingleDeviceSharding``) puts that leaf there, ``None``
+    leaves it to ``device``; dtypes still follow ``like``."""
+    t = _tree()
+    save_checkpoint(str(tmp_path), 1, t)
+    sh = tree_map(lambda _: torch.device("cpu"), t)
+    r, _ = restore_checkpoint(str(tmp_path), t, sharding_tree=sh)
+    assert all(x.device == torch.device("cpu") for x in tree_leaves(r))
+    assert torch.equal(r["a"], t["a"]) and torch.equal(r["nested"]["b"], t["nested"]["b"])
+    like = {"a": torch.zeros((8, 4), dtype=torch.float64), "nested": {"b": torch.zeros(3)}}
+    r, _ = restore_checkpoint(str(tmp_path), like, device="meta",
+                              sharding_tree={"a": "meta", "nested": {"b": None}})
+    assert r["a"].device.type == r["nested"]["b"].device.type == "meta"
+    assert r["a"].dtype == torch.float64 and r["nested"]["b"].dtype == torch.float32
+    r, _ = restore_checkpoint(str(tmp_path), t, sharding_tree={"a": torch.device("meta"),
+                                                                "nested": {"b": None}})
+    assert r["a"].device.type == "meta" and r["nested"]["b"].device.type == "cpu"
+    with pytest.raises(TypeError, match="not a placement"):
+        restore_checkpoint(str(tmp_path), t, sharding_tree={"a": 3, "nested": {"b": None}})
+
+
+@pytest.mark.parametrize("rank", [0, 3])
+def test_restore_onto_a_mesh_keeps_each_ranks_piece(tmp_path, rank):
+    """A ``(DeviceMesh, named(mesh, spec))`` leaf under a fake 4-rank group
+    (2 x 2, this process rank 0 or 3): each leaf is a DTensor of the saved
+    global shape whose local piece is this rank's slice of the saved array,
+    bit for bit (uneven rows, nested axes on one dim, replicated, bf16);
+    no process group outlives the restore."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.policies import named
+    from repro_torch.launch.dryrun import _fake_world
+    from repro_torch.launch.mesh import make_mesh
+
+    rng = np.random.default_rng(7)
+    t = {"w": torch.from_numpy(rng.standard_normal((5, 6)).astype(np.float32)),
+         "v": torch.from_numpy(rng.standard_normal((8, 3)).astype(np.float32)),
+         "r": torch.from_numpy(rng.integers(0, 9, (4,)).astype(np.int32)),
+         "b": torch.from_numpy(rng.standard_normal((6, 2)).astype(np.float32)).bfloat16()}
+    save_checkpoint(str(tmp_path), 2, t)
+    row, col = divmod(rank, 2)  # (data, model) coordinate
+    want = {"w": t["w"][(0, 3)[row]:(3, 5)[row], 3 * col:3 * col + 3],  # 5 rows: 3 + 2
+            "v": t["v"][2 * rank:2 * rank + 2], "r": t["r"], "b": t["b"][:, col:col + 1]}
+    assert not dist.is_initialized()
+    with _fake_world(4, rank=rank):
+        mesh = make_mesh((2, 2), ("data", "model"))
+        specs = {"w": ("data", "model"), "v": (("data", "model"), None), "r": (),
+                 "b": (None, "model")}
+        sh = {k: (mesh, named(mesh, spec)) for k, spec in specs.items()}
+        r, step = restore_checkpoint(str(tmp_path), t, sharding_tree=sh)
+        assert step == 2
+        for k, x in r.items():
+            assert tuple(x.shape) == tuple(t[k].shape) and x.placements == sh[k][1], k
+            got = x.to_local()
+            assert got.dtype == t[k].dtype and got.shape == want[k].shape, k
+            assert torch.equal(got.view(torch.int16) if k == "b" else got,
+                               want[k].view(torch.int16) if k == "b" else want[k]), k
+    assert not dist.is_initialized()
+
+
 def test_crash_restart_driver(tmp_path):
     """Simulated failure at step 17: training must resume from step 10."""
     calls = {"crashed": False}

@@ -777,6 +777,126 @@ def test_new_kernels_refuse_bad_inputs(dev):
 
 
 # ---------------------------------------------------- the index kinds ----
+def _two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    return torch.device("cuda", 1)
+
+
+def test_every_kernel_launches_on_its_tensors_card(dev):
+    """Each wrapper launches on its inputs' card, not the current one: every
+    kernel called on cuda:1 while cuda:0 is current equals its plain
+    version there, and its counter files the launch under card 1.  Needs
+    two cards."""
+    from repro_torch.kernels.bfs_frontier import kernel as bfs_k, ops as bfs_ops
+    from repro_torch.kernels.ell_spmm import kernel as ell_k, ops as ell_ops
+    from repro_torch.kernels.flash_attn import kernel as fa_k, ref as fa_ref
+    from repro_torch.kernels.frontier_expand import kernel as fe_k, ref as fe_ref
+    from repro_torch.kernels.ivf_scan import kernel as ivf_k, ops as ivf_ops
+    from repro_torch.kernels.topk_sim import kernel as topk_k, ops as topk_ops
+
+    d1 = _two_cards()
+    rng = np.random.default_rng(28)
+    counters = (topk_k.launches, ivf_k.launches, bfs_k.launches, fe_k.launches, ell_k.launches,
+                fa_k.fwd_launches, fa_k.dq_launches, fa_k.dkv_launches)
+    before = [c.by_device.get(1, 0) for c in counters]
+    with torch.cuda.device(0):
+        ev, qv = _unit(rng, (3000, 128), d1), _unit(rng, (5, 128), d1)
+        s_k, i_k = topk_ops.topk_similarity(qv, ev, 7)
+        s_p, i_p = topk_ops.topk_similarity(qv, ev, 7, use_kernel=False)
+        assert torch.equal(i_k, i_p) and (s_k - s_p).abs().max().item() <= 1e-5
+        cand = torch.from_numpy(rng.integers(0, 3001, (5, 2000)).astype(np.int32)).to(d1)
+        cmask = torch.from_numpy(rng.random((5, 2000)) < 0.6).to(d1) & (cand < 3000)
+        got = ivf_ops.ivf_candidate_scan(qv, ev, cand, cmask, 9)
+        want = ivf_ops.ivf_candidate_scan(qv, ev, cand, cmask, 9, use_kernel=False)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        nbr = torch.from_numpy(rng.integers(0, 2001, (2000, 16)).astype(np.int32)).to(d1)
+        msk = torch.from_numpy(rng.random((2000, 16)) < 0.6).to(d1)
+        fr = torch.from_numpy(rng.random((3, 2000)) < 0.05).to(d1)
+        assert torch.equal(bfs_ops.frontier_hop(fr, nbr, msk),
+                           bfs_ops.frontier_hop(fr, nbr, msk, use_kernel=False))
+        ws = torch.sort(torch.from_numpy(rng.integers(0, 5000, (3, 300)).astype(np.int32)), 1)[0]
+        ws, wc = ws.to(d1), torch.from_numpy(rng.integers(0, 5000, (3, 700)).astype(np.int32)).to(d1)
+        assert torch.equal(fe_k.ws_mark_kernel(ws, wc), fe_ref.ws_member(ws, wc))
+        feat, enbr, emsk = _ell_inputs(d1, 4, 1024, 16, 128, torch.float32)
+        assert torch.equal(ell_ops.ell_aggregate(feat, enbr, emsk),
+                           ell_ops.ell_aggregate(feat, enbr, emsk, use_kernel=False))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+                           .to(d1, dtype) for sh in ((1, 192, 4, 64), (1, 192, 2, 64),
+                                                     (1, 192, 2, 64), (1, 192, 4, 64)))
+            o_k, lse_k = fa_k.flash_fwd_kernel(q, k, v, None)
+            o_p, lse_p = fa_ref.flash_fwd(q, k, v, None, 64, 64)
+            dq_k, delta_k = fa_k.flash_bwd_dq_kernel(q, k, v, o_p, do, lse_p, None)
+            dk_k, dv_k = fa_k.flash_bwd_dkv_kernel(q, k, v, do, lse_p, delta_k, None)
+            dq_p, delta_p = fa_ref.flash_bwd_dq(q, k, v, o_p, do, lse_p, None, 64, 64)
+            dk_p, dv_p = fa_ref.flash_bwd_dkv(q, k, v, do, lse_p, delta_p, None, 64, 64)
+            tag = "fp32" if dtype == torch.float32 else "bf16"
+            _flash_close(o_k, o_p, f"o {tag}")
+            torch.testing.assert_close(lse_k, lse_p, atol=1e-4, rtol=1e-5)
+            for name, got_, want_ in (("dq", dq_k, dq_p), ("dk", dk_k, dk_p), ("dv", dv_k, dv_p)):
+                _flash_close(got_, want_, f"{name} {tag}")
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(d1)
+    assert [c.by_device.get(1, 0) - b for c, b in zip(counters, before)] == [1, 1, 1, 1, 1, 2,
+                                                                             2, 2]
+
+
+def test_sharded_index_over_two_cards_matches_brute(dev):
+    """S = 4 over cuda:0 and cuda:1: brute ids equal ``BruteIndex``'s and
+    the scores and ids of one card at the same S, bit for bit; each card
+    runs its two shards' scans; IVF bit-equal to one card.  Needs two
+    cards."""
+    from repro_torch.core.indexing import BruteIndex
+    from repro_torch.core.sharding import ShardedIndex
+    from repro_torch.graph import generators
+    from repro_torch.kernels.topk_sim import kernel
+
+    _two_cards()
+    g = generators.citation_graph(6000, seed=4, with_text=False)
+    q = g.node_feat[np.random.default_rng(1).choice(6000, 8)]
+    two = ShardedIndex.build(g.node_feat, n_shards=4, devices=["cuda:0", "cuda:1"])
+    assert [b.device.index for b in two.emb_blocks] == [0, 1]
+    kernel.launches.reset()
+    ss, si = two.search(q, 9)
+    torch.cuda.synchronize(1)
+    assert kernel.launches.by_device == {0: 2, 1: 2} and ss.device.index == 0
+    bs, bi = BruteIndex.build(g.node_feat).search(q, 9)
+    assert torch.equal(si, bi)
+    for inner in ("brute", "ivf"):
+        kw = dict(n_shards=4, inner=inner, n_clusters=8)
+        a = ShardedIndex.build(g.node_feat, devices=["cuda:0", "cuda:1"], **kw).search(q, 9)
+        b = ShardedIndex.build(g.node_feat, devices=["cuda:0"], **kw).search(q, 9)
+        assert torch.equal(a[1], b[1]) and torch.equal(a[0].view(torch.int32),
+                                                       b[0].view(torch.int32)), inner
+
+
+def test_two_positions_on_one_card_equal_one_device(dev):
+    """``devices=["cuda:0"] * 2`` (a one-card host's mesh of two) is
+    bit-equal to one device at the same S, brute and IVF, and keeps views of
+    one array rather than copies."""
+    from repro_torch.core.sharding import ShardedIndex
+    from repro_torch.graph import generators
+    from repro_torch.kernels.topk_sim import kernel
+
+    g = generators.citation_graph(6000, seed=5, with_text=False)
+    q = g.node_feat[np.random.default_rng(2).choice(6000, 8)]
+    for inner in ("brute", "ivf"):
+        kw = dict(n_shards=4, inner=inner, n_clusters=8)
+        two = ShardedIndex.build(g.node_feat, devices=["cuda:0"] * 2, **kw)
+        one = ShardedIndex.build(g.node_feat, devices=["cuda:0"], **kw)
+        assert two.mesh_size == 2 and one.mesh_size == 1
+        assert two.emb_blocks[0].untyped_storage().data_ptr() == \
+            two.emb_blocks[1].untyped_storage().data_ptr()
+        kernel.launches.reset()
+        a, b = two.search(q, 9), one.search(q, 9)
+        torch.cuda.synchronize()
+        assert torch.equal(a[1], b[1]) and torch.equal(a[0].view(torch.int32),
+                                                       b[0].view(torch.int32)), inner
+        if inner == "brute":
+            assert kernel.launches.by_device == {0: 8}
+
+
 def test_index_kinds_on_the_card_match_the_cpu(dev):
     """IVF and sharded IVF built on the CPU, moved to the card: the card's
     search (ivf_scan / topk_sim kernels) equals the CPU's plain search, ids
@@ -794,8 +914,8 @@ def test_index_kinds_on_the_card_match_the_cpu(dev):
                   lambda d: ShardedIndex.build(g.node_feat, n_shards=3, inner="ivf",
                                                n_clusters=8, device=d)):
         cpu = build("cpu")
-        card = type(cpu)(**{f: (v.to(dev) if torch.is_tensor(v) else v)
-                            for f, v in vars(cpu).items()})
+        card = cpu.to(dev) if isinstance(cpu, ShardedIndex) else type(cpu)(
+            **{f: (v.to(dev) if torch.is_tensor(v) else v) for f, v in vars(cpu).items()})
         before = kernel.launches.count
         s_c, i_c = card.search(q, 10)
         assert kernel.launches.count > before

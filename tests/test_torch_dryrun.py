@@ -426,6 +426,59 @@ def test_reduced_lm_prefill_cache_is_made_sharded(monkeypatch):
     assert rec["memory"]["per_device_total"] < cache / 3
 
 
+# EquiformerV2 at ``molecule`` (one edge chunk a layer) as the dry run counted
+# it when it sliced the edge arrays, its forward alone (the full steps take
+# ~20 s and ~107 s here, past this file's budget; their records' pins are in
+# PERF.md): (FLOPs, argument bytes, per-device total) on each production mesh.
+_EQUI_FORWARD_PINS = {False: (145_103_192_064, 450_486_884, 1_257_384_948),
+                      True: (77_889_994_752, 450_482_276, 1_172_036_068)}
+
+
+def _forward_only(monkeypatch):
+    """Cells' train steps become their loss alone (the forward)."""
+    import repro_torch.training as training
+
+    monkeypatch.setattr(training, "make_train_step", lambda loss_fn, opt_cfg, **kw: (
+        None, lambda state, batch: loss_fn(state["params"], batch)[0]))
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_equiformer_molecule_counts_are_pinned(multi_pod, monkeypatch):
+    """Reading the edge arrays chunk by chunk from each rank's own rows
+    changes no count of a one-chunk cell: FLOPs, argument bytes and the
+    per-device total equal what the dry run gave when it sliced them."""
+    _forward_only(monkeypatch)
+    rec = dryrun.run_cell("equiformer-v2", "molecule", multi_pod=multi_pod, skip_analysis=True)
+    assert rec["status"] == "ok"
+    assert (rec["cost_full_program"]["flops"], rec["memory"]["argument_bytes"],
+            rec["memory"]["per_device_total"]) == _EQUI_FORWARD_PINS[multi_pod]
+
+
+def test_equiformer_chunks_read_each_ranks_own_rows(monkeypatch):
+    """Four edge chunks a layer instead of one (the forward on 16 x 16): the
+    one-chunk forward's FLOPs, every chunk built from rank 0's own rows, and
+    no full edge array all-gathered (DTensor's slice of the row-sharded
+    array would gather all 16,384 rows for every chunk)."""
+    _forward_only(monkeypatch)
+    built, gathered = [], []
+    make, dispatch = dryrun._ChunkRows.__getitem__, dryrun._Count._dispatch
+
+    def recording(self, func, types, args, kwargs):
+        out = dispatch(self, func, types, args, kwargs)
+        if "all_gather_into_tensor" in str(func) and isinstance(out, torch.Tensor):
+            gathered.append(tuple(out.shape))
+        return out
+
+    monkeypatch.setattr(dryrun._ChunkRows, "__getitem__",
+                        lambda self, span: built.append(span.start) or make(self, span))
+    monkeypatch.setattr(dryrun._Count, "_dispatch", recording)
+    rec = dryrun.run_cell("equiformer-v2", "molecule", skip_analysis=True, edge_chunk=4096)
+    assert rec["status"] == "ok"
+    assert rec["cost_full_program"]["flops"] == _EQUI_FORWARD_PINS[False][0]
+    assert set(built) == {0, 4096, 8192, 12288} and gathered
+    assert not [s for s in gathered if s[0] == 16_384], gathered
+
+
 # ---------------------------------------------------------------- (h) ----
 def test_no_process_group_outlives_a_cell(monkeypatch):
     assert not dist.is_initialized()

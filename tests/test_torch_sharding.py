@@ -95,11 +95,11 @@ def test_sharded_brute_ties_with_duplicate_rows():
 
 
 # --------------------------------------------------------- sharded IVF ----
-def _port_from_reference(r):
-    return ShardedIndex(
-        emb_shards=T(r.emb_shards), n_total=r.n_total, rows_per_shard=r.rows_per_shard,
-        normalized=r.normalized, inner=r.inner, centroids=T(r.centroids), lists=T(r.lists),
-        list_mask=T(r.list_mask), nprobe=r.nprobe)
+def _port_from_reference(r, devices=None):
+    return ShardedIndex.from_shards(
+        T(r.emb_shards), r.n_total, r.rows_per_shard, normalized=r.normalized, inner=r.inner,
+        centroids=T(r.centroids), lists=T(r.lists), list_mask=T(r.list_mask), nprobe=r.nprobe,
+        devices=devices, device="cpu")
 
 
 @pytest.mark.parametrize("n,n_shards,n_clusters,nprobe,k", [
@@ -153,3 +153,197 @@ def test_build_index_kinds_and_config_shards():
     assert index_from_config(emb, PipelineConfig(index_kind="sharded"), device="cpu").n_shards == 1
     with pytest.raises(ValueError, match="unknown inner"):
         ShardedIndex.build(emb, inner="hnsw", device="cpu")
+
+
+# ------------------------------------------------ the mesh of devices ----
+@pytest.mark.parametrize("n_shards", range(1, 10))
+def test_mesh_size_and_its_warning_match_the_reference(n_shards):
+    """The largest divisor of n_shards within the devices, with the
+    reference's warning where that collapses the mesh."""
+    import warnings
+
+    from repro.core.sharding import _mesh_size as ref_mesh_size
+    from repro_torch.core.sharding import _mesh_size
+
+    for n_dev in range(1, 9):
+        with warnings.catch_warnings(record=True) as ref_w:
+            warnings.simplefilter("always")
+            want = ref_mesh_size(n_shards, n_dev)
+        with warnings.catch_warnings(record=True) as got_w:
+            warnings.simplefilter("always")
+            got = _mesh_size(n_shards, n_dev)
+        assert got == want, (n_shards, n_dev)
+        assert [str(w.message) for w in got_w] == [str(w.message) for w in ref_w], (n_shards,
+                                                                                  n_dev)
+
+
+# the reference on a forced 4-device host mesh (the device count must be set
+# before JAX starts, hence a subprocess, which runs this source too, without
+# torch); cases (name, N, S, k), built from one seed on both sides
+_MESH_CASES_SRC = """
+import numpy as np
+_MESH_CASES = [("2500-4-11", 2500, 4, 11), ("2501-8-5", 2501, 8, 5), ("60-7-60", 60, 7, 60),
+               ("96-4-5", 96, 4, 5), ("empty_trailing", 5, 4, 5), ("duplicate_rows", 120, 5, 9)]
+
+
+def _mesh_case(name, n, s, k):
+    rng = np.random.default_rng(n * 10 + s)
+    if name == "duplicate_rows":  # rows i, i + 40, i + 80 tie across shards
+        base = rng.standard_normal((40, 16)).astype(np.float32)
+        return np.concatenate([base, base, base]), base[:4].copy()
+    d = 8 if n < 10 else 32
+    return (rng.standard_normal((n, d)).astype(np.float32),
+            rng.standard_normal((5, d)).astype(np.float32))
+"""
+exec(_MESH_CASES_SRC)
+
+
+_REF_MESH_SCRIPT = """
+import numpy as np, jax, jax.numpy as jnp
+from repro.core import ShardedIndex
+
+assert jax.device_count() == 4, jax.device_count()
+out = {{}}
+for name, n, s, k in _MESH_CASES:
+    emb, q = _mesh_case(name, n, s, k)
+    idx = ShardedIndex.build(emb, n_shards=s)
+    ss, si = idx.search(jnp.asarray(q), k)
+    out[name + "/mesh"] = np.asarray(idx.mesh.size)
+    out[name + "/scores"], out[name + "/ids"] = np.asarray(ss), np.asarray(si)
+rng = np.random.default_rng(11)
+emb = rng.standard_normal((1000, 32)).astype(np.float32)
+q = rng.standard_normal((6, 32)).astype(np.float32)
+r = ShardedIndex.build(emb, n_shards=4, inner="ivf", n_clusters=16, nprobe=3)
+assert r.mesh.size == 4
+s, i = r.search(jnp.asarray(q), 7)
+out.update({{"ivf/q": q, "ivf/scores": np.asarray(s), "ivf/ids": np.asarray(i),
+            "ivf/emb_shards": np.asarray(r.emb_shards), "ivf/centroids": np.asarray(r.centroids),
+            "ivf/lists": np.asarray(r.lists), "ivf/list_mask": np.asarray(r.list_mask),
+            "ivf/meta": np.asarray([r.n_total, r.rows_per_shard, r.nprobe])}})
+np.savez({out!r}, **out)
+print("REF_MESH_OK")
+"""
+
+
+@pytest.fixture(scope="module")
+def ref_mesh(tmp_path_factory):
+    import os
+    import subprocess
+    import sys
+
+    path = str(tmp_path_factory.mktemp("ref_mesh") / "ref.npz")
+    tests = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "").replace(
+        "--xla_force_host_platform_device_count=4", "")
+        + " --xla_force_host_platform_device_count=4").strip()
+    env["PYTHONPATH"] = os.pathsep.join([os.path.join(tests, "..", "src"),
+                                         env.get("PYTHONPATH", "")])
+    script = _MESH_CASES_SRC + _REF_MESH_SCRIPT.format(out=path)
+    out = subprocess.run([sys.executable, "-c", script],
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and "REF_MESH_OK" in out.stdout, out.stderr[-2000:]
+    with np.load(path) as z:
+        return dict(z)
+
+
+def _within_ulps(got: torch.Tensor, want: np.ndarray, ulps: int) -> None:
+    """Finite scores within ``ulps`` ULP of the scores' scale, 1.0 (dot
+    products of unit vectors; fp32's ULP there is 2**-23), -inf equal.  An
+    ULP of each value would be no bound near 0: the reference's own sharded
+    and brute scores of one near-zero pair differ by thousands of them."""
+    a, b = got.numpy(), np.asarray(want)
+    assert a.shape == b.shape
+    finite = np.isfinite(b)
+    np.testing.assert_array_equal(np.isfinite(a), finite)
+    gap = np.abs(a[finite] - b[finite]).max(initial=0.0)
+    assert gap <= ulps * 2.0**-23, gap
+
+
+@pytest.mark.parametrize("case", _MESH_CASES, ids=[c[0] for c in _MESH_CASES])
+def test_sharded_over_four_devices_matches_the_reference_mesh(case, ref_mesh):
+    """Four mesh positions (``devices=["cpu"] * 4``) against the reference's
+    4-device host mesh: the same mesh size, ids exact, scores within 2 ULP at
+    1.0 (the reference's own scores move by 1-2 ULP across layouts)."""
+    name, n, s, k = case
+    emb, q = _mesh_case(name, n, s, k)
+    idx = ShardedIndex.build(emb, n_shards=s, devices=["cpu"] * 4, device="cpu")
+    assert idx.mesh_size == int(ref_mesh[name + "/mesh"]) and idx.n_shards == min(s, n)
+    ss, si = idx.search(q, k)
+    np.testing.assert_array_equal(si.numpy(), ref_mesh[name + "/ids"])
+    _within_ulps(ss, ref_mesh[name + "/scores"], 2)
+
+
+def test_sharded_ivf_over_four_devices_on_the_reference_arrays(ref_mesh):
+    """The reference's per-shard IVF state from its 4-device mesh, laid over
+    four positions: ids exact."""
+    n_total, rows, nprobe = (int(v) for v in ref_mesh["ivf/meta"])
+    idx = ShardedIndex.from_shards(
+        T(ref_mesh["ivf/emb_shards"]), n_total, rows, inner="ivf",
+        centroids=T(ref_mesh["ivf/centroids"]), lists=T(ref_mesh["ivf/lists"]),
+        list_mask=T(ref_mesh["ivf/list_mask"]), nprobe=nprobe, devices=["cpu"] * 4,
+        device="cpu")
+    assert idx.mesh_size == 4 and [b.shape[0] for b in idx.list_blocks] == [1] * 4
+    s, i = idx.search(ref_mesh["ivf/q"], 7)
+    np.testing.assert_array_equal(i.numpy(), ref_mesh["ivf/ids"])
+    np.testing.assert_allclose(s.numpy(), ref_mesh["ivf/scores"], atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("inner", ["brute", "ivf"])
+def test_mesh_size_leaves_results_bit_equal(inner):
+    """One device and four positions at the same n_shards: the same bits,
+    brute and IVF (k-means runs per shard on its position's device)."""
+    rng = np.random.default_rng(12)
+    emb = rng.standard_normal((1003, 24)).astype(np.float32)
+    q = rng.standard_normal((7, 24)).astype(np.float32)
+    kw = dict(n_shards=8, inner=inner, n_clusters=8, nprobe=3, device="cpu")
+    one = ShardedIndex.build(emb, devices=["cpu"], **kw)
+    four = ShardedIndex.build(emb, devices=["cpu"] * 4, **kw)
+    assert (one.mesh_size, four.mesh_size) == (1, 4)
+    assert [b.shape[0] for b in four.emb_blocks] == [2] * 4
+    for k in (1, 10, 60):
+        (s1, i1), (s4, i4) = one.search(q, k), four.search(q, k)
+        assert torch.equal(i1, i4) and torch.equal(s1.view(torch.int32), s4.view(torch.int32))
+    if inner == "ivf":
+        for f in ("centroids", "lists", "list_mask"):
+            assert torch.equal(getattr(one, f), getattr(four, f)), f
+    assert torch.equal(ShardedIndex.build(emb, device="cpu").emb_shards,
+                       ShardedIndex.build(emb, devices=["cpu"], device="cpu").emb_shards)
+
+
+@pytest.mark.parametrize("inner", ["brute", "ivf"])
+def test_use_kernel_reaches_the_scan_ops(inner, monkeypatch):
+    """``use_kernel`` goes to every shard's scan op: False takes the plain
+    versions, True asks for the kernel (which refuses CPU tensors)."""
+    from repro_torch.kernels.ivf_scan import ops as ivf_ops
+    from repro_torch.kernels.topk_sim import ops as topk_ops
+
+    rng = np.random.default_rng(13)
+    emb = rng.standard_normal((300, 16)).astype(np.float32)
+    q = rng.standard_normal((3, 16)).astype(np.float32)
+    op = topk_ops if inner == "brute" else ivf_ops
+    name = "topk_similarity" if inner == "brute" else "ivf_candidate_scan"
+    seen = []
+    real = getattr(op, name)
+    monkeypatch.setattr(op, name, lambda *a, **kw: seen.append(kw["use_kernel"]) or real(*a, **kw))
+    kw = dict(n_shards=4, inner=inner, n_clusters=4, devices=["cpu"] * 2, device="cpu")
+    plain = ShardedIndex.build(emb, use_kernel=False, **kw)
+    assert plain.search(q, 5)[1].shape == (3, 5) and seen == [False] * 4
+    with pytest.raises(ValueError, match="CUDA device"):
+        ShardedIndex.build(emb, use_kernel=True, **kw).search(q, 5)
+    assert seen[4] is True
+
+
+def test_mesh_devices_resolve_as_entry_points_do():
+    """``devices=None`` on the CPU is the home device alone; a card that is
+    not there raises as ``resolve_device`` does; 7 shards on 4 positions
+    collapse to one, with the reference's warning."""
+    from repro_torch.core.sharding import mesh_devices
+
+    assert mesh_devices(None, torch.device("cpu")) == [torch.device("cpu")]
+    with pytest.raises(RuntimeError):
+        mesh_devices([f"cuda:{torch.cuda.device_count()}"], torch.device("cpu"))
+    emb = np.random.default_rng(14).standard_normal((70, 8)).astype(np.float32)
+    with pytest.warns(UserWarning, match="using a 1-device mesh"):
+        idx = ShardedIndex.build(emb, n_shards=7, devices=["cpu"] * 4, device="cpu")
+    assert idx.mesh_size == 1 and idx.emb_blocks[0].shape[0] == 7
