@@ -30,6 +30,7 @@ from repro_torch.core.workset import Workset, build_workset, localize, workset_a
 from repro_torch.graph.ell import ELLGraph
 from repro_torch.kernels.bfs_frontier import ops as bfs_frontier_ops
 from repro_torch.kernels.topk_sim.ref import stable_topk
+from repro_torch.tracing import span
 
 INF = 0x3FFFFFF
 _INT32_MAX = 2**31 - 1  # what an empty segment of a segment-min holds
@@ -573,6 +574,7 @@ def retrieve_subgraph(
     *,
     mode: str = "auto",
     workset_cap: int = 2048,
+    counters: Optional[dict] = None,
     **kw,
 ) -> Subgraph:
     """Strategy dispatch over an :class:`ELLGraph` (public entry point).
@@ -584,23 +586,42 @@ def retrieve_subgraph(
     radius overflows any practical cap on large connected graphs — it stays
     dense under auto), with a dense re-run when any query overflows.  The
     overflow check is on the host (one device sync).
+
+    ``counters`` (an ``RGLPipeline``'s) counts the batch, its rows, the
+    compact pass and, under ``auto``, the overflowed queries and the dense
+    re-run; ``compact`` mode reads no flag on the host, so it counts no
+    overflow.
     """
     if mode not in ("dense", "compact", "auto"):
         raise ValueError(f"unknown retrieval mode: {mode!r}")
     seeds = torch.as_tensor(seeds, device=g.nbr.device).to(torch.int32)
+
+    def count(key: str, n: int = 1) -> None:
+        if counters is not None:
+            counters[key] = counters.get(key, 0) + n
+
+    count("batches")
+    count("rows", int(seeds.shape[0]))
     use_compact = mode == "compact" or (
         mode == "auto"
         and strategy != "ppr"
         and g.num_nodes >= AUTO_COMPACT_MIN_NODES
         and workset_cap < g.num_nodes
     )
-    if use_compact:
-        cap = max(workset_cap, kw.get("max_nodes", 64), seeds.shape[1])
-        sub = COMPACT_STRATEGIES[strategy](g.nbr, g.nbr_mask, seeds, workset_cap=cap, **kw)
-        if mode == "auto" and bool(sub.overflow.any()):
+    if not use_compact:
+        with span("rgl.retrieve.subgraph.dense"):
             return STRATEGIES[strategy](g.nbr, g.nbr_mask, seeds, **kw)
-        return sub
-    return STRATEGIES[strategy](g.nbr, g.nbr_mask, seeds, **kw)
+    cap = max(workset_cap, kw.get("max_nodes", 64), seeds.shape[1])
+    with span("rgl.retrieve.subgraph.compact"):
+        sub = COMPACT_STRATEGIES[strategy](g.nbr, g.nbr_mask, seeds, workset_cap=cap, **kw)
+        overflowed = int(sub.overflow.sum()) if mode == "auto" else 0
+    count("compact_runs")
+    count("overflowed_queries", overflowed)
+    if overflowed:
+        count("dense_reruns")
+        with span("rgl.retrieve.subgraph.rerun"):
+            return STRATEGIES[strategy](g.nbr, g.nbr_mask, seeds, **kw)
+    return sub
 
 
 def induced_adjacency(nbr, nbr_mask, sub: Subgraph):

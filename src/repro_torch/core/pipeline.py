@@ -20,6 +20,14 @@ from repro_torch.core import filters, graph_retrieval, node_retrieval, tokenizat
 from repro_torch.core.graph_retrieval import Subgraph
 from repro_torch.core.indexing import build_index
 from repro_torch.graph.ell import ELLGraph
+from repro_torch.tracing import span
+
+# the pipeline's retrieval counters (``RGLPipeline.stats()``): subgraph
+# batches, their query rows (padding included) and the real ones, compact
+# passes, ``auto``'s dense re-runs after them, and the queries that
+# overflowed the workset (read where ``auto`` checks the overflow)
+RETRIEVAL_COUNTERS = ("batches", "rows", "valid_rows", "compact_runs", "dense_reruns",
+                      "overflowed_queries")
 
 
 @dataclasses.dataclass
@@ -99,6 +107,8 @@ class RGLPipeline:
             # a store re-points only the pipelines attached to it, so every
             # copy (dataclasses.replace runs this too) attaches itself
             self.mutation_store.attach(self)
+        # each copy counts its own retrievals
+        self.counters = dict.fromkeys(RETRIEVAL_COUNTERS, 0)
 
     @property
     def epoch(self) -> int:
@@ -131,6 +141,7 @@ class RGLPipeline:
             workset_cap=self.config.workset_cap,
             max_hops=self.config.max_hops,
             max_nodes=self.config.max_nodes,
+            counters=self.counters,
         )
 
     def filter(self, sub: Subgraph, query_emb, seeds) -> Subgraph:
@@ -139,17 +150,28 @@ class RGLPipeline:
 
     def retrieve(self, query_emb, encoder=None) -> RetrievalResult:
         """Stages 2+3+filter — the sub-pipeline completion tasks use."""
-        q = torch.as_tensor(query_emb, dtype=torch.float32)
-        if self.device.type == "cuda" and q.device.type == "cpu":
-            # from pinned memory the copy is queued on the current stream; a
-            # pageable copy would first wait for everything queued there
-            # (the admission prefetcher's side stream included)
-            q = q.pin_memory().to(self.device, non_blocking=True)
-        q = q.to(self.device)
-        _, seeds = self.retrieve_seeds(q, encoder=encoder)
-        sub = self.retrieve_subgraph(seeds)
-        sub = self.filter(sub, q, seeds)
-        n_valid = 1 if q.ndim == 1 else int(q.shape[0])
+        return self._retrieve(query_emb, encoder, None)
+
+    def _retrieve(self, query_emb, encoder, n_valid: Optional[int]) -> RetrievalResult:
+        """``retrieve`` of a batch whose first ``n_valid`` rows are real
+        queries (None: every row)."""
+        with span("rgl.retrieve"):
+            q = torch.as_tensor(query_emb, dtype=torch.float32)
+            if self.device.type == "cuda" and q.device.type == "cpu":
+                # from pinned memory the copy is queued on the current stream; a
+                # pageable copy would first wait for everything queued there
+                # (the admission prefetcher's side stream included)
+                q = q.pin_memory().to(self.device, non_blocking=True)
+            q = q.to(self.device)
+            with span("rgl.retrieve.seeds"):
+                _, seeds = self.retrieve_seeds(q, encoder=encoder)
+            with span("rgl.retrieve.subgraph"):
+                sub = self.retrieve_subgraph(seeds)
+            with span("rgl.retrieve.filter"):
+                sub = self.filter(sub, q, seeds)
+        if n_valid is None:
+            n_valid = 1 if q.ndim == 1 else int(q.shape[0])
+        self.counters["valid_rows"] += n_valid
         return RetrievalResult(sub=sub, seeds=seeds, n_valid=n_valid, epoch=self.epoch)
 
     def retrieve_many(self, query_embs, *, batch_size: Optional[int] = None,
@@ -167,8 +189,11 @@ class RGLPipeline:
             raise ValueError(f"{n_valid} queries > batch_size {bs}")
         if n_valid < bs:
             q = np.concatenate([q, np.zeros((bs - n_valid, q.shape[1]), np.float32)], axis=0)
-        res = self.retrieve(q, encoder=encoder)
-        return dataclasses.replace(res, n_valid=n_valid)
+        return self._retrieve(q, encoder, n_valid)
+
+    def stats(self) -> dict:
+        """A copy of the retrieval counters (``RETRIEVAL_COUNTERS``)."""
+        return dict(self.counters)
 
     def tokenize(self, query_texts, sub: Subgraph):
         if self.tokenizer is None or self.node_text is None:

@@ -38,6 +38,7 @@ from repro_torch.models.transformer import model as tm
 from repro_torch.models.transformer.config import TransformerConfig
 from repro_torch.serving.config import env_flag
 from repro_torch.serving.drafter import draft_tokens
+from repro_torch.tracing import Totals, span
 
 
 def _draft_window_default() -> int:
@@ -80,6 +81,10 @@ class Request:
     # this request's freshly prefilled prompt blocks as its pin
     shared_prefix: object = None
     pin_to: object = None
+    # the engine's clock when its prefill started, and when its first token
+    # reached the host
+    t_admitted: Optional[float] = None
+    t_first_token: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -220,6 +225,10 @@ class ServeEngine:
     it mid-decode, first asks the cache to release pins and then retires
     the highest-indexed needy slot with ``truncated=True`` before the step
     runs, so the device allocator never over-pops.
+
+    ``now_fn`` stamps each request's ``t_admitted`` (prefill start) and
+    ``t_first_token`` (first token on the host) and times ``admit_seconds``
+    and ``decode_seconds``; the RAG engine passes its own clock.
     """
 
     def __init__(
@@ -228,9 +237,10 @@ class ServeEngine:
         spec_decode: Optional[bool] = None, draft_window: Optional[int] = None,
         paged_kv: Optional[bool] = None, block_size: Optional[int] = None,
         pool_blocks: Optional[int] = None, prefix_share: Optional[bool] = None,
-        device="cuda",
+        device="cuda", now_fn=time.monotonic,
     ):
         self.device = resolve_device(device)
+        self._now = now_fn
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the engine on {self.device}")
         self.spec_decode = env_flag("RGL_SPEC_DECODE") if spec_decode is None else bool(spec_decode)
@@ -313,14 +323,22 @@ class ServeEngine:
         self._out_len_dev = self._ids(self._out_len)
         self.prefill_batches = 0  # prefill dispatches issued by _admit
         self.prefill_rows = 0  # prompts actually prefilled
-        self.admit_seconds = 0.0  # wall time inside _admit
+        self._admit_t = Totals(now_fn)  # rgl.decode.admit: time inside _admit
         self.decode_steps = 0  # decode dispatches
-        self.decode_seconds = 0.0  # wall time of decode steps, token sync included
+        self._decode_t = Totals(now_fn)  # rgl.decode.step: decode steps, token sync included
         self.slot_steps = 0  # live-slot decode opportunities (slots x steps)
         self.emitted_tokens = 0  # all tokens committed (incl. prefill firsts)
         self.decode_tokens = 0  # tokens committed by decode dispatches
         self.draft_proposed = 0  # draft tokens fed to verification
         self.draft_accepted = 0  # drafts accepted (the free token excluded)
+
+    @property
+    def admit_seconds(self) -> float:
+        return self._admit_t.seconds
+
+    @property
+    def decode_seconds(self) -> float:
+        return self._decode_t.seconds
 
     @property
     def free_slots(self) -> int:
@@ -568,11 +586,12 @@ class ServeEngine:
         return out
 
     def _admit(self) -> list:
-        t0 = time.perf_counter()
-        try:
+        def queued_uids() -> str:  # the requests this admission may take
+            free = self.slots - int(self.live.sum())
+            return "uids=" + ",".join(str(r.uid) for r in list(self.queue)[:free])
+
+        with span("rgl.decode.admit", self._admit_t, queued_uids):
             return self._admit_inner()
-        finally:
-            self.admit_seconds += time.perf_counter() - t0
 
     def _paged_take(self, n_free_slots: int) -> tuple[int, dict]:
         """How many queued requests the pool admits now (FIFO: a head that
@@ -611,17 +630,20 @@ class ServeEngine:
             return []
         reqs = [self.queue.popleft() for _ in range(take)]
         slot_ids = free[:take]
+        t_admitted = self._now()
         first_by_slot = np.zeros(self.slots, np.int64)
         fresh_pairs = [(j, i) for j, i in enumerate(slot_ids) if j not in plans]
         if fresh_pairs:
             self._prefill_fresh(reqs, fresh_pairs, first_by_slot)
         if plans:
             self._adopt_shared(slot_ids, plans, first_by_slot)
+        t_first = self._now()
         if self.paged_kv:
             self.pool_high_water = max(self.pool_high_water, self.pool_blocks - self._free_host)
         finished = []
         dead_at_admission = []
         for j, (req, i) in enumerate(zip(reqs, slot_ids)):
+            req.t_admitted, req.t_first_token = t_admitted, t_first
             tok0 = int(first_by_slot[i])
             req.out_tokens.append(tok0)
             self.emitted_tokens += 1
@@ -663,32 +685,35 @@ class ServeEngine:
             n = len(reqs[j].prompt_ids)  # submit() guarantees n < cache_len
             toks[f, :n] = np.asarray(reqs[j].prompt_ids, np.int32)
             tl[f] = n
-        logits, fresh = tm.prefill(
-            self.params, torch.from_numpy(toks).to(self.device),
-            torch.from_numpy(tl).to(self.device), self.cfg, self.cache_len,
-        )
+        with span("rgl.decode.admit.prefill"):
+            logits, fresh = tm.prefill(
+                self.params, torch.from_numpy(toks).to(self.device),
+                torch.from_numpy(tl).to(self.device), self.cfg, self.cache_len,
+            )
+            first = torch.argmax(logits, dim=-1).to(torch.int32)  # (slots,)
         self.prefill_batches += 1
         self.prefill_rows += len(fresh_pairs)
-        first = torch.argmax(logits, dim=-1).to(torch.int32)  # (slots,)
         rows = np.zeros(self.slots, np.int64)
         newly = np.zeros(self.slots, bool)
         tl_slot = np.zeros(self.slots, np.int32)
         for f, (_, i) in enumerate(fresh_pairs):
             rows[i], newly[i], tl_slot[i] = f, True, tl[f]
-        if self.paged_kv:
-            self._guard_alloc(sum(self._blocks_for(int(t)) for t in tl_slot),
-                              "admission prefill merge")
-            self.cache, self.cur_tok = _paged_merge_admitted(
-                self.cache, fresh, self.cur_tok, first, self._ids(rows),
-                torch.from_numpy(newly).to(self.device), self._ids(tl_slot), self.block_size,
-            )
-            for f, (_, i) in enumerate(fresh_pairs):  # slot order, as the device pops
-                self._pop_host(i, self._blocks_for(int(tl[f])))
-            self._live_dirty = True
-        else:
-            self.cache, self.cur_tok = _merge_admitted(self.cache, fresh, self.cur_tok, first,
-                                                       rows, newly)
-        first_np = first.cpu().numpy()
+        with span("rgl.decode.admit.merge"):
+            if self.paged_kv:
+                self._guard_alloc(sum(self._blocks_for(int(t)) for t in tl_slot),
+                                  "admission prefill merge")
+                self.cache, self.cur_tok = _paged_merge_admitted(
+                    self.cache, fresh, self.cur_tok, first, self._ids(rows),
+                    torch.from_numpy(newly).to(self.device), self._ids(tl_slot), self.block_size,
+                )
+                for f, (_, i) in enumerate(fresh_pairs):  # slot order, as the device pops
+                    self._pop_host(i, self._blocks_for(int(tl[f])))
+                self._live_dirty = True
+            else:
+                self.cache, self.cur_tok = _merge_admitted(self.cache, fresh, self.cur_tok,
+                                                           first, rows, newly)
+        with span("rgl.decode.admit.first_token"):
+            first_np = first.cpu().numpy()
         for f, (_, i) in enumerate(fresh_pairs):
             first_by_slot[i] = int(first_np[f])
 
@@ -758,16 +783,17 @@ class ServeEngine:
 
     def _step_one(self) -> list:
         """One-token decode: one decode step emits one token per slot."""
-        t0 = time.perf_counter()
-        if self.paged_kv:
-            self._apply_paged_alloc()
-            nxt, self.cache = tm.paged_serve_step(self.params, self.cache, self.cur_tok,
-                                                  self._live_mask(), self.cfg, self.block_size)
-        else:
-            nxt, self.cache = tm.serve_step(self.params, self.cache, self.cur_tok, self.cfg)
-        self.cur_tok = nxt
-        toks = nxt.cpu().numpy()  # the step's token sync
-        self.decode_seconds += time.perf_counter() - t0
+        with span("rgl.decode.step", self._decode_t):
+            if self.paged_kv:
+                self._apply_paged_alloc()
+                nxt, self.cache = tm.paged_serve_step(self.params, self.cache, self.cur_tok,
+                                                      self._live_mask(), self.cfg,
+                                                      self.block_size)
+            else:
+                nxt, self.cache = tm.serve_step(self.params, self.cache, self.cur_tok, self.cfg)
+            self.cur_tok = nxt
+            with span("rgl.decode.step.token_sync"):
+                toks = nxt.cpu().numpy()
         self.decode_steps += 1
         self._cursor += 1  # decode_step advances every slot's cursor
         finished = []
@@ -792,21 +818,21 @@ class ServeEngine:
         mirrors give (clamped to >= 1): their writes stay masked at the
         arena's edge (or, paged, are not made) and admission re-pins them."""
         w = self.draft_window
-        t0 = time.perf_counter()
-        if self.paged_kv:
-            self._apply_paged_alloc()
-            (packed, self.cur_tok, self.cache, self._hist_dev, self._hist_len_dev,
-             self._out_len_dev) = _paged_spec_step(
-                self.params, self.cache, self.cur_tok, self._hist_dev, self._hist_len_dev,
-                self._max_new_dev, self._out_len_dev, self._live_mask(), self.cfg, w - 1,
-                self.eos_id, self.block_size)
-        else:
-            (packed, self.cur_tok, self.cache, self._hist_dev, self._hist_len_dev,
-             self._out_len_dev) = _spec_step(
-                self.params, self.cache, self.cur_tok, self._hist_dev, self._hist_len_dev,
-                self._max_new_dev, self._out_len_dev, self.cfg, w - 1, self.eos_id)
-        packed_np = packed.cpu().numpy()  # the step's one token sync
-        self.decode_seconds += time.perf_counter() - t0
+        with span("rgl.decode.step", self._decode_t):
+            if self.paged_kv:
+                self._apply_paged_alloc()
+                (packed, self.cur_tok, self.cache, self._hist_dev, self._hist_len_dev,
+                 self._out_len_dev) = _paged_spec_step(
+                    self.params, self.cache, self.cur_tok, self._hist_dev, self._hist_len_dev,
+                    self._max_new_dev, self._out_len_dev, self._live_mask(), self.cfg, w - 1,
+                    self.eos_id, self.block_size)
+            else:
+                (packed, self.cur_tok, self.cache, self._hist_dev, self._hist_len_dev,
+                 self._out_len_dev) = _spec_step(
+                    self.params, self.cache, self.cur_tok, self._hist_dev, self._hist_len_dev,
+                    self._max_new_dev, self._out_len_dev, self.cfg, w - 1, self.eos_id)
+            with span("rgl.decode.step.token_sync"):  # the step's one host transfer
+                packed_np = packed.cpu().numpy()
         self.decode_steps += 1
         g_np, acc_np = packed_np[:, :w], packed_np[:, w]
         self._cursor += acc_np  # verify_step advanced every slot by its accepted count

@@ -87,10 +87,12 @@ reference).
 
 Telemetry (merged into ``RAGServeEngine.stats()``): ``waves`` /
 ``batches`` / ``queries``; ``launch_seconds`` / ``block_seconds`` (host
-time in dispatch and in the collect-phase force); ``overlap_seconds`` (per
-wave, wall time from launch return to collect start: an upper bound on the
-retrieval hidden behind decode); ``overlap_steps`` / ``overlap_tokens``
-(engine steps run and tokens committed in that window); ``hidden_frac`` =
+time in dispatch and in the collect-phase force: the totals of the two
+``rgl.serve.retrieval`` spans, on the prefetcher's clock);
+``overlap_seconds`` (per wave, wall time from launch return to collect
+start: an upper bound on the retrieval hidden behind decode);
+``overlap_steps`` / ``overlap_tokens`` (engine steps run and tokens
+committed in that window); ``hidden_frac`` =
 overlap / (overlap + block).
 
 **Fault tolerance** (all off by default): a wave not ready
@@ -116,6 +118,7 @@ import numpy as np
 import torch
 
 from repro_torch.serving.cache import CachedRetrieval, RetrievalCache
+from repro_torch.tracing import Totals, span, uids
 
 
 def device_error(exc: BaseException) -> bool:
@@ -243,14 +246,25 @@ class AdmissionPrefetcher:
         self.waves = 0  # async-collected waves (prefetch schedule only)
         self.batches = 0  # retrieval dispatches (both schedules)
         self.queries = 0  # deduped queries retrieved
-        self.launch_seconds = 0.0
-        self.block_seconds = 0.0
+        # rgl.serve.retrieval's two sites, on the prefetcher's clock
+        self._launch_t = Totals(now_fn)
+        self._block_t = Totals(now_fn)
         self.overlap_seconds = 0.0
         self.overlap_steps = 0
         self.overlap_tokens = 0
         self.retries = 0  # size-1 relaunches of failed miss-groups
         self.timeouts = 0  # waits that hit retrieval_timeout_s
         self.failures = 0  # groups that exhausted retries (ladder-bound)
+
+    @property
+    def launch_seconds(self) -> float:
+        """Time in :meth:`launch` (cache lookups and the dispatch)."""
+        return self._launch_t.seconds
+
+    @property
+    def block_seconds(self) -> float:
+        """Time in the collect-phase force of waves that dispatched."""
+        return self._block_t.seconds
 
     @property
     def _n_nodes(self) -> Optional[int]:
@@ -341,8 +355,13 @@ class AdmissionPrefetcher:
         still counts its own miss), and keys already in flight defer to the
         owning wave with no counter touched until that wave collects.
         """
+        with span("rgl.serve.retrieval", self._launch_t, uids(reqs)):
+            wave = self._launch(reqs, step, tokens)
+        self._waves.append(wave)
+        return wave
+
+    def _launch(self, reqs: list, step: int, tokens: int) -> PrefetchWave:
         cache = self.cache
-        t0 = self._now()
         wave = PrefetchWave(reqs=reqs, entry_for=[None] * len(reqs), miss_groups={},
                             deferred=[], launch_step=step, launch_tokens=tokens)
         for j, r in enumerate(reqs):
@@ -382,8 +401,6 @@ class AdmissionPrefetcher:
                 self.batches += 1
                 self.queries += res.n_valid
         wave.launched_at = self._now()
-        self.launch_seconds += wave.launched_at - t0
-        self._waves.append(wave)
         return wave
 
     # -- collect --------------------------------------------------------------
@@ -563,8 +580,8 @@ class AdmissionPrefetcher:
         failures: dict = {}
         try:
             if wave.has_misses:
-                self._resolve_misses(wave, entries, failures)
-                self.block_seconds += self._now() - t0
+                with span("rgl.serve.retrieval", self._block_t, uids(wave.reqs)):
+                    self._resolve_misses(wave, entries, failures)
 
             # deferred first (cache hits on earlier waves' keys, resolved
             # before this wave's own puts as in sync get-then-put order)

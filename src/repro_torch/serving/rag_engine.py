@@ -50,6 +50,11 @@ from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.engine import Request, ServeEngine
 from repro_torch.serving.prefetch import AdmissionPrefetcher, device_error
 from repro_torch.serving.stats import flatten_stats
+from repro_torch.tracing import span, uids
+
+# the times to first token kept, newest last: those of the last TTFT_KEEP
+# requests served
+TTFT_KEEP = 1 << 16
 
 
 @dataclasses.dataclass
@@ -84,6 +89,14 @@ class RAGRequest:
     shed: bool = False
     error: Optional[str] = None  # reason for failed / shed
     deadline_at: Optional[float] = None  # absolute deadline, set at submit
+    # the engine's clock (``now_fn``) at submit, at the hand-off to a
+    # retrieval wave, at prefill start, when the first token reached the
+    # host, and when the request came back done
+    t_submit: Optional[float] = None
+    t_dispatched: Optional[float] = None
+    t_admitted: Optional[float] = None
+    t_first_token: Optional[float] = None
+    t_done: Optional[float] = None
 
 
 class RAGServeEngine:
@@ -148,7 +161,7 @@ class RAGServeEngine:
             eos_id=resolved.eos_id, spec_decode=resolved.spec_decode,
             draft_window=resolved.draft_window, paged_kv=resolved.paged_kv,
             block_size=resolved.kv_block_size, pool_blocks=resolved.kv_pool_blocks,
-            prefix_share=resolved.prefix_share, device=self.device,
+            prefix_share=resolved.prefix_share, device=self.device, now_fn=now_fn,
         )
         self.cache = retrieval_cache if retrieval_cache is not None else RetrievalCache(
             capacity=resolved.cache_capacity, quant_eps=resolved.quant_eps,
@@ -195,6 +208,13 @@ class RAGServeEngine:
         self.stale_served = 0
         self.mutation_batches = 0  # apply_mutations calls
         self.mutation_invalidated = 0  # cache entries they dropped
+        # requests served (done), on now_fn's clock: queue_seconds sums
+        # t_admitted - t_submit, latency_seconds t_done - t_submit, and
+        # ttft_s keeps each one's t_first_token - t_submit
+        self.finished_count = 0
+        self.queue_seconds = 0.0
+        self.latency_seconds = 0.0
+        self.ttft_s: deque = deque(maxlen=TTFT_KEEP)
 
     # -- counters -------------------------------------------------------------
     @property
@@ -266,6 +286,8 @@ class RAGServeEngine:
             deadline = req.deadline_s if req.deadline_s is not None else self.default_deadline_s
             if deadline is not None:
                 req.deadline_at = self._now() + float(deadline)
+        if req.t_submit is None:  # a failover re-dispatch keeps its first submit
+            req.t_submit = self._now()
         if self.max_pending and len(self.pending) >= self.max_pending:
             if self.shed_policy == "reject":
                 self._shed(req, "queue full (shed_policy=reject)")
@@ -277,12 +299,14 @@ class RAGServeEngine:
     def _take_wave(self, limit: Optional[int] = None) -> list:
         cap = self.slots if limit is None else limit
         out: list = []
+        now = self._now()
         while self.pending and len(out) < cap:
             r = self.pending.popleft()
             if self._expired(r):
                 # deadline boundary 1: never dispatch retrieval for it
                 self._shed(r, "deadline expired before retrieval dispatch")
                 continue
+            r.t_dispatched = now
             out.append(r)
         return out
 
@@ -298,6 +322,10 @@ class RAGServeEngine:
         admission ticket.  This is where the degradation ladder runs, one
         request at a time, and where an expired request is shed (deadline
         boundary 3)."""
+        with span("rgl.serve.tokenize", args=uids([r for r, _, _ in resolved])):
+            self._tokenize_and_admit_inner(resolved)
+
+    def _tokenize_and_admit_inner(self, resolved: list) -> None:
         tok = self.pipeline.tokenizer
         node_text = self.pipeline.node_text
         for r, e, err in resolved:
@@ -419,25 +447,35 @@ class RAGServeEngine:
         """One engine step: admission (sync or prefetched, wave or
         continuous) + one decode step.  Returns the requests that finished
         or went terminal this step."""
-        if not self.prefetch:
-            self._admit_sync()
-        elif self.admission == "continuous":
-            self._admit_continuous()
-        else:
-            self._admit_prefetch()
-        finished_inner = self.engine.step()
+        with span("rgl.serve.step"):
+            if not self.prefetch:
+                self._admit_sync()
+            elif self.admission == "continuous":
+                self._admit_continuous()
+            else:
+                self._admit_prefetch()
+            finished_inner = self.engine.step()
         self._step_no += 1
         out = []
+        now = self._now()
         for inner in finished_inner:
             r = self._inflight.pop(inner.ticket)
             r.out_tokens = inner.out_tokens
             r.truncated = inner.truncated
             r.done = True
+            r.t_admitted, r.t_first_token, r.t_done = inner.t_admitted, inner.t_first_token, now
+            self._count_finished(r)
             out.append(r)
         if self._terminal:
             out.extend(self._terminal)
             self._terminal.clear()
         return out
+
+    def _count_finished(self, r: RAGRequest) -> None:
+        self.finished_count += 1
+        self.queue_seconds += r.t_admitted - r.t_submit
+        self.latency_seconds += r.t_done - r.t_submit
+        self.ttft_s.append(r.t_first_token - r.t_submit)
 
     def _drained(self) -> bool:
         return (not self.pending and not self.prefetcher.in_flight
@@ -540,7 +578,9 @@ class RAGServeEngine:
 
     def stats_ns(self) -> dict:
         """Namespaced stats, one sub-dict per serving layer (``cache``,
-        ``engine``, ``prefetch``, ``decode``, ``mutation``)."""
+        ``engine``, ``prefetch``, ``decode``, ``mutation``, ``retrieval``:
+        the pipeline's counters, ``requests``: the served requests' times).
+        Every value is a copy: a snapshot does not move."""
         ns = {
             "cache": self.cache.stats(),
             "engine": {
@@ -563,6 +603,14 @@ class RAGServeEngine:
         mut["batches"] = self.mutation_batches
         mut["invalidated"] = self.mutation_invalidated
         ns["mutation"] = mut
+        counters = getattr(self.pipeline, "stats", None)  # a duck-typed pipeline may have none
+        ns["retrieval"] = counters() if counters is not None else {}
+        ns["requests"] = {
+            "finished": self.finished_count,
+            "queue_seconds": self.queue_seconds,
+            "latency_seconds": self.latency_seconds,
+            "ttft_s": list(self.ttft_s),
+        }
         return ns
 
     def stats(self) -> dict:

@@ -9,13 +9,19 @@ Every serving layer exposes its counters under one namespace of a nested
 * ``decode.*``   — :meth:`repro_torch.serving.engine.ServeEngine.decode_stats`
 * ``router.*``   — :class:`repro_torch.serving.router.ReplicaRouter`
 * ``mutation.*`` — the online-mutation tier (:mod:`repro_torch.core.mutation`)
+* ``retrieval.*`` — the pipeline's counters (``RGLPipeline.stats()``)
+* ``requests.*`` — RAGServeEngine's served requests: queue and answer
+  seconds, and each one's time to first token
 
 :func:`flatten_stats` derives the historical flat dict from the tree.  The
 namespaces that predate the schema (``LEGACY_FLAT``) flatten *unprefixed* —
 their keys are the exact keys nine PRs of tests and dashboards already
 read (``hits``, ``prefetch_waves``, ``decode_steps``, ...).  Namespaces
-introduced with the schema (``mutation``, ``router``) flatten with a
-``<ns>_`` prefix so they can never collide with a legacy key.
+introduced with the schema (``mutation``, ``router``, ``retrieval``,
+``requests``) flatten with a ``<ns>_`` prefix, and a prefixed key never
+replaces a key already in the flat view: ``retrieval.batches`` would read
+``retrieval_batches``, the engine's own dispatch count, so it stays in the
+tree alone.
 """
 from __future__ import annotations
 
@@ -38,5 +44,5 @@ def flatten_stats(ns: dict) -> dict:
             flat.update(group)
         else:
             for k, v in group.items():
-                flat[f"{name}_{k}"] = v
+                flat.setdefault(f"{name}_{k}", v)
     return flat
